@@ -1,0 +1,370 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch port's homomorphic gate step on one NVIDIA H100.
+
+    python3 chip_smoke.py
+
+Phases (any failure ends the run with a non-zero exit and no result line):
+  1. build the CUDA kernels of cuhe_tpu_torch/csrc with nvcc (sm_90a), and
+     measure the card's integer multiply rates (csrc/calib.cu), which the
+     operation side of each kernel's bound uses;
+  2. hold every kernel bit for bit against its plain PyTorch version on the
+     card, and time both (CUDA events, median after warm-up) at the gate
+     step's shapes;
+  3. the entry configuration (16k ring, 4 primes, batch 2): the step on the
+     card with the kernels equals the step on the CPU with the plain
+     versions (which the tests hold against the JAX package);
+  4. PRINCE level 0 (n = 32768, 25 primes, 40 digits, batch 32): the first
+     two ciphertexts against the plain path on the card, then the launch
+     counts of one batch-32 step (the main path), its time and peak memory.
+It prints a `kernels` JSON line, the card's name and power limit, and last
+{"ok": true, "device": {...}}.  It needs one card and no network.
+"""
+
+from __future__ import annotations
+
+import hashlib
+import json
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+
+# H100 SXM memory rate (NVIDIA data sheet, 700 W).  The data sheet gives no
+# integer rates; the operation side of each bound uses the multiply rates
+# that csrc/calib.cu measures on this card in this run (phase 1).
+HBM_BYTES_PER_S = 3.35e12
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def gpu_line() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+
+
+def cuda_ms(fn, reps: int, warm: int = 1) -> float:
+    import torch
+    for _ in range(warm):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def bound(nbytes: float, ops: dict, rates: dict) -> tuple[float, str]:
+    """Least time in ms: the larger of the bytes over the memory rate and
+    the multiplies of each kind over that kind's measured peak rate."""
+    tb = nbytes / HBM_BYTES_PER_S * 1e3
+    to = max(count / rates[kind] * 1e3 for kind, count in ops.items())
+    return (tb, "bytes") if tb >= to else (to, "operations")
+
+
+def ntt_products(n: int) -> int:
+    """64x64->128-bit products of a length-n NTT over Z_P by radix-64
+    passes: the inner length-64 DFTs need only shifts, since every 64th root
+    of unity mod P is a power of two (8 has order 64), and so does each
+    twiddle w^(k1 j2) between passes whose order divides 64.  The other
+    twiddles are counted; additions, shifts and reductions are not."""
+    if n <= 64:
+        return 0
+    m = n // 64
+    k1, j2 = np.arange(64)[:, None], np.arange(m)[None, :]
+    return int(np.count_nonzero(k1 * j2 % m)) + 64 * ntt_products(m)
+
+
+def calibrate(dev, launch, card: str) -> dict:
+    """Peak multiply rates of this card (per second) from csrc/calib.cu.
+
+    mad32: 32x32->64 products, the faster of one wide instruction (mode 1)
+    and a low/high pair (mode 2).  mul64: 64x64->128 products, the faster
+    of the compiler's own (mode 0) and four 32x32->64 products (schoolbook).
+    """
+    import torch
+    blocks = torch.cuda.get_device_properties(dev).multi_processor_count * 8
+    iters = 4096
+    out = torch.empty(blocks * 256, dtype=torch.int64, device=dev)
+    per_s = []
+    for mode in range(3):
+        ms = cuda_ms(lambda: launch(out, mode, iters, blocks), 10, warm=2)
+        per_s.append(blocks * 256 * 8 * iters / (ms * 1e-3))
+    log(f"[calib] per second: {per_s[0] / 1e12:.4f} T 64x64->128 products, "
+        f"{per_s[1] / 1e12:.4f} T wide and {per_s[2] / 1e12:.4f} T "
+        f"low/high-pair 32x32->64 products [{card}]")
+    mad32 = max(per_s[1], per_s[2])
+    return {"mad32": mad32, "mul64": max(per_s[0], mad32 / 4)}
+
+
+def profile_step(run, step_ms: float, card: str) -> None:
+    """Device time of one step by kernel (torch.profiler), split into the
+    port's CUDA kernels and PyTorch's own kernels, and the idle share
+    against the step's CUDA-event time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    run()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    rows = sorted(((e.key, e.self_device_time_total / 1e3, e.count)
+                   for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA),
+                  key=lambda r: -r[1])
+    busy = sum(ms for _, ms, _ in rows)
+    if busy <= 0:
+        log("[profile] the profiler recorded no device time: not measured")
+        return
+    ours = sum(ms for k, ms, _ in rows if any(
+        s in k for s in ("fwd_cols", "ntt_rows", "inv_cols", "icrt_kernel",
+                         "relin_mulacc_kernel")))
+    log(f"[profile] one batch-32 step: device busy {busy:.3f} ms "
+        f"(port kernels {ours:.3f} ms, PyTorch kernels {busy - ours:.3f} ms), "
+        f"{len(rows)} kernel names, idle share "
+        f"{max(0.0, 1 - busy / step_ms):.3f} of {step_ms:.3f} ms [{card}]")
+    for k, ms, cnt in rows[:12]:
+        log(f"[profile]   {ms:9.3f} ms  x{cnt:<5d} {k[:90]}")
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    repo = Path(__file__).resolve().parent
+    sys.path.insert(0, str(repo))
+    from cuhe_tpu_torch import entry as port_entry
+    from cuhe_tpu_torch import hostmath as hm
+    from cuhe_tpu_torch.ops import _cuda, crt, modp
+    from cuhe_tpu_torch.ops import ntt_kernels as nk
+    from cuhe_tpu_torch.ops.relin import digit_chunk
+    from cuhe_tpu_torch.params import make_params
+    from cuhe_tpu_torch.step import GateStep
+
+    card = gpu_line()
+    dev = torch.device("cuda", 0)
+    log(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
+
+    # ---- 1. build -------------------------------------------------------
+    so, build_s = _cuda.build()
+    _cuda.lib()
+    log(f"[build] {so.name} in {build_s:.1f} s")
+    rates = calibrate(dev, lambda *a: _cuda.launch("calib", "cuhe_calib",
+                                                   dev, *a), card)
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2026)
+
+    def rand_u32(shape, high=1 << 32):
+        return modp.to_u32(torch.randint(0, high, shape, generator=gen,
+                                         device=dev, dtype=torch.int64))
+
+    def rand_pair(shape):  # values < P
+        return rand_u32(shape), rand_u32(shape, 0xFFFFFFFF)
+
+    def same(a, b) -> bool:
+        if isinstance(a, tuple):
+            return all(same(x, y) for x, y in zip(a, b))
+        return a.shape == b.shape and torch.equal(a.view(torch.int32),
+                                                  b.view(torch.int32))
+
+    def compare(name, shape_tag, kern, plain):
+        """Raise unless the kernel's output equals the plain version's bit
+        for bit (the tolerance is 0, so the max abs error is 0)."""
+        got, want = kern(), plain()
+        torch.cuda.synchronize()
+        if not same(got, want):
+            raise AssertionError(f"{name} {shape_tag}: kernel != plain")
+        log(f"[kernel] {name} {shape_tag}: bit-exact")
+
+    # ---- 2. every kernel against its plain version ------------------------
+    results = {}
+    for n in (16384, 32768, 65536):
+        x = rand_u32((8, n // 2))
+        compare("ntt_fwd", f"n={n} x8", lambda: nk.fwd_linear(x, n),
+                lambda: nk.fwd_linear_plain(x, n))
+        pr_ = torch.tensor([4294967291, 3, 65537, 7681] * 2,
+                           device=dev, dtype=torch.int64)
+        xp = rand_pair((8, n))
+        compare("ntt_inv_modcrt", f"n={n} x8",
+                lambda: nk.inv_linear(xp, n, modp.to_u32(pr_)),
+                lambda: nk.inv_linear_plain(xp, n, modp.to_u32(pr_)))
+
+    for tag, params, batch in (("entry", port_entry.ENTRY_PARAMS, 2),
+                               ("prince_l0", port_entry.PRINCE_PARAMS, 32)):
+        pr = make_params(*params)
+        n, pn = pr.ntt_len, pr.num_crt_prime
+        words, knum, w = pr.words_coeff(0), pr.num_eval_key_lvl(0), pr.log_relin
+        c = digit_chunk(batch, n, knum)
+        primes = torch.tensor(pr.crt_primes, device=dev, dtype=torch.int64)
+        q, mi, bi = pr.icrt_consts(0)
+        m_words = modp.to_u32(torch.tensor(
+            hm.ints_to_words([q], words)[:, 0].astype("int64"), device=dev))
+        mi_words = modp.to_u32(torch.tensor(
+            [hm.ints_to_words([v], words)[:, 0].astype("int64").tolist()
+             for v in mi], device=dev))
+        bi_t = modp.to_u32(torch.tensor(bi, device=dev, dtype=torch.int64))
+        p_u32 = modp.to_u32(primes)
+
+        x = rand_u32((batch, pn, n // 2))
+        xp = rand_pair((batch, pn, n))
+        crt_in = modp.to_u32(torch.remainder(
+            torch.randint(0, 1 << 32, (batch, pn, n // 2), generator=gen,
+                          device=dev, dtype=torch.int64), primes[:, None]))
+        raw = rand_u32((batch, words, n // 2))
+        ek = rand_pair((knum, pn, n))
+        # the second digit chunk where there is one (a nonzero bit offset
+        # into the words, and a previous chunk's partial to add)
+        j0 = c if knum > c else 0
+        cc = min(c, knum - j0)
+        dig = nk.ntt_fwd_digits(raw, n, w=w, j0=j0, c=cc)
+        acc = rand_pair((batch, pn, n))
+        cases = {
+            "ntt_fwd": (lambda: nk.fwd_linear(x, n),
+                        lambda: nk.fwd_linear_plain(x, n)),
+            "ntt_inv_modcrt": (lambda: nk.inv_linear(xp, n, p_u32),
+                               lambda: nk.inv_linear_plain(xp, n, p_u32)),
+            "icrt": (lambda: crt.icrt_to_raw(crt_in, p_u32, bi_t, mi_words,
+                                             m_words),
+                     lambda: crt.icrt_to_raw_plain(crt_in, p_u32, bi_t,
+                                                   mi_words, m_words)),
+            "ntt_fwd_digits": (
+                lambda: nk.ntt_fwd_digits(raw, n, w=w, j0=j0, c=cc),
+                lambda: nk.ntt_fwd_digits_plain(raw, n, w=w, j0=j0, c=cc)),
+            "relin_mulacc": (
+                lambda: nk.relin_mulacc(dig, ek, j0=j0, pnum=pn, acc=acc),
+                lambda: nk.relin_mulacc_plain(dig, ek, j0=j0, pnum=pn,
+                                              acc=acc)),
+        }
+        # the last digit chunk, whose window runs past the top word
+        last = (knum - 1) // c * c
+        compare("ntt_fwd_digits", f"{tag} last chunk",
+                lambda: nk.ntt_fwd_digits(raw, n, w=w, j0=last, c=knum - last),
+                lambda: nk.ntt_fwd_digits_plain(raw, n, w=w, j0=last,
+                                                c=knum - last))
+        # fewer planes than the eval keys hold (a level above 0)
+        compare("relin_mulacc", f"{tag} pnum {pn - 1} of {pn}",
+                lambda: nk.relin_mulacc(dig, ek, j0=j0, pnum=pn - 1),
+                lambda: nk.relin_mulacc_plain(dig, ek, j0=j0, pnum=pn - 1))
+        span = min(words, (((w * j0) & 31) + w * cc - 1) // 32 + 2)
+        prods = ntt_products(n)
+        model = {  # (bytes, multiplies by kind) of one call at these shapes
+            "ntt_fwd": (batch * pn * (n // 2 * 4 + n * 8),
+                        {"mul64": batch * pn * prods}),
+            # n^-1 folds into a twiddle pass; the mod p is not a multiply
+            "ntt_inv_modcrt": (batch * pn * n * 12,
+                               {"mul64": batch * pn * prods}),
+            # per coefficient and prime: y = x * b_i, then y times each
+            # nonzero word of M/p_i
+            "icrt": (batch * (pn + words) * (n // 2) * 4,
+                     {"mad32": batch * (n // 2) * sum(
+                         1 + (v.bit_length() + 31) // 32 for v in mi)}),
+            "ntt_fwd_digits": (batch * span * (n // 2) * 4 + cc * batch * n * 8,
+                               {"mul64": cc * batch * prods}),
+            "relin_mulacc": ((cc * batch + cc * pn + 2 * batch * pn) * n * 8,
+                             {"mul64": cc * batch * pn * n}),
+        }
+        reps_plain = 3 if tag == "prince_l0" else 5
+        for name, (kern, plain) in cases.items():
+            compare(name, tag, kern, plain)
+            ms = cuda_ms(kern, 20)
+            plain_ms = cuda_ms(plain, reps_plain)
+            b_ms, b_by = bound(*model[name], rates)
+            results[(name, tag)] = dict(ms=ms, plain_ms=plain_ms,
+                                        bound_ms=b_ms, bound_by=b_by)
+            log(f"[time] {name} {tag}: kernel {ms:.4f} ms, plain "
+                f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}) "
+                f"[{card}]")
+        del x, xp, crt_in, raw, ek, dig, acc
+        torch.cuda.empty_cache()
+
+    # ---- 3. entry configuration: card == CPU ------------------------------
+    step_cpu, args_cpu = port_entry.entry(device="cpu")
+    want = step_cpu(*args_cpu)
+    step_gpu, args_gpu = port_entry.entry(device=dev)
+    got = step_gpu(*args_gpu)
+    torch.cuda.synchronize()
+    if tuple(got.shape) != (2, 3, 8192) or not same(got.cpu(), want):
+        raise AssertionError("entry step: card != CPU")
+    digest = hashlib.sha256(got.cpu().numpy().tobytes()).hexdigest()
+    log(f"[entry] step on card == step on CPU, uint32 {tuple(got.shape)}, "
+        f"sha256 {digest}")
+    entry_ms = cuda_ms(lambda: step_gpu(*args_gpu), 10)
+    log(f"[entry] step {entry_ms:.3f} ms for 2 ciphertexts [{card}]")
+    del step_cpu, args_cpu, step_gpu, args_gpu
+
+    # ---- 4. PRINCE level 0, full size -------------------------------------
+    t0 = time.perf_counter()
+    step, args = port_entry.make_prince_l0_step(batch=32, device=dev)
+    torch.cuda.synchronize()
+    log(f"[prince] context + keys + inputs in {time.perf_counter() - t0:.1f} s")
+    two = tuple(a[:2].contiguous() for a in args)
+    ref = GateStep(step.ctx, 0, plain=True)(*two)
+    got2 = step(*two)
+    torch.cuda.synchronize()
+    if not same(got2, ref):
+        raise AssertionError("prince: kernels != plain on the first 2 ciphertexts")
+    log("[prince] 2 ciphertexts: kernel step == plain step on the card")
+
+    _cuda.reset_launches()
+    out = step(*args)
+    torch.cuda.synchronize()
+    launches = dict(_cuda.LAUNCHES)
+    log(f"[prince] launches in one batch-32 step: {launches}")
+    if tuple(out.shape) != (32, 24, 16384) or not same(out[:2].contiguous(), got2):
+        raise AssertionError("prince: batch-32 rows 0..1 != the 2-ciphertext run")
+    torch.cuda.reset_peak_memory_stats()
+    step_ms = cuda_ms(lambda: step(*args), 5)
+    peak = torch.cuda.max_memory_allocated()
+    log(f"[prince] step {step_ms:.3f} ms per 32 ciphertexts, "
+        f"{step_ms / 32:.4f} ms per ciphertext, peak memory {peak / 2**30:.2f} GiB "
+        f"[{card}]")
+
+    profile_step(lambda: step(*args), step_ms, card)
+
+    sources = {"ntt_fwd": ("cuhe_tpu_torch/csrc/ntt.cu",
+                           "cuhe_tpu/ops/ntt_kernels.py:330"),
+               "ntt_inv_modcrt": ("cuhe_tpu_torch/csrc/ntt.cu",
+                                  "cuhe_tpu/ops/ntt_kernels.py:1014"),
+               "icrt": ("cuhe_tpu_torch/csrc/icrt.cu",
+                        "cuhe_tpu/ops/crt.py:113"),
+               "ntt_fwd_digits": ("cuhe_tpu_torch/csrc/ntt.cu",
+                                  "cuhe_tpu/ops/ntt_kernels.py:432"),
+               "relin_mulacc": ("cuhe_tpu_torch/csrc/relin.cu",
+                                "cuhe_tpu/ops/ntt_kernels.py:556")}
+    kernels = []
+    for name, (src, rep) in sources.items():
+        if launches.get(name, 0) < 1:
+            raise AssertionError(f"{name} was not launched on the main path")
+        r = results[(name, "prince_l0")]
+        kernels.append({"name": name, "route": "cuda", "source": src,
+                        "replaces": rep, "launches": launches[name],
+                        "max_abs_err": 0, "ms": r["ms"],
+                        "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                        "bound_by": r["bound_by"], "library_ms": None})
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(gpu_line(), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,84 @@
+"""Inverse CRT of residue planes to RAW multiword coefficients.
+
+Counterpart of ``cuhe_tpu/ops/crt.py:43-162``: for each coefficient
+
+    x = sum_i ((x_i * b_i mod p_i) * M/p_i)  mod M
+
+as a multiword sum, with a conditional subtract of M after each prime
+(leq_M, Base.cu:845-856), so the result is the unique value in [0, M).
+`icrt_to_raw` launches ``csrc/icrt.cu`` for CUDA tensors and runs
+`icrt_to_raw_plain` for CPU tensors.
+
+Layouts: CRT ``[.., pnum, L]`` and RAW ``[.., words, L]`` uint32 planes;
+bi ``[pnum]``, mi_words ``[pnum, words]``, m_words ``[words]`` uint32.
+"""
+
+from __future__ import annotations
+
+from math import prod
+
+import torch
+
+from . import _cuda, modp
+from .ntt_kernels import _is_cpu
+
+MAX_WORDS = 32  # the kernel's accumulator width (csrc/icrt.cu kMaxWords)
+
+
+def icrt_to_raw_plain(crt, primes, bi, mi_words, m_words) -> torch.Tensor:
+    """Plain version of `icrt_to_raw`: a loop over primes and words."""
+    x = modp.to_i64(crt)
+    pnum = x.shape[-2]
+    ps = modp.to_i64(primes).tolist()
+    bs = modp.to_i64(bi).tolist()
+    mi = modp.to_i64(mi_words).tolist()
+    m = modp.to_i64(m_words).tolist()
+    words = len(m)
+    zero = torch.zeros_like(x[..., 0, :])
+    s = [zero] * (words + 1)
+    for i in range(pnum):
+        y = modp.mulmod32(x[..., i, :], bs[i], ps[i])
+        carry = zero
+        for w in range(words):
+            lo, hi = modp.mul32(y, mi[i][w])
+            t = s[w] + lo + carry
+            s[w] = t & modp.M32
+            carry = (t >> 32) + hi
+        s[words] = s[words] + carry
+        ge = s[words] > 0
+        eq = torch.ones_like(ge)
+        for w in range(words - 1, -1, -1):
+            ge = ge | (eq & (s[w] > m[w]))
+            eq = eq & (s[w] == m[w])
+        ge = ge | eq
+        borrow = zero
+        for w in range(words):
+            d = s[w] - m[w] - borrow
+            borrow = (d < 0).to(torch.int64)
+            s[w] = torch.where(ge, d & modp.M32, s[w])
+        s[words] = torch.where(ge, s[words] - borrow, s[words])
+    return modp.to_u32(torch.stack(s[:words], dim=-2))
+
+
+def icrt_to_raw(crt, primes, bi, mi_words, m_words) -> torch.Tensor:
+    """CRT residues uint32 [.., pnum, L] -> RAW uint32 [.., words, L] in
+    [0, M), with pnum = crt.shape[-2] and words = len(m_words)."""
+    if _is_cpu(crt):
+        return icrt_to_raw_plain(crt, primes, bi, mi_words, m_words)
+    dev = crt.device
+    _cuda.check(crt, "crt", torch.uint32)
+    pnum, length = crt.shape[-2], crt.shape[-1]
+    words = m_words.shape[0]
+    if not 1 <= words <= MAX_WORDS:
+        raise ValueError(f"{words} words: the kernel takes 1..{MAX_WORDS}")
+    _cuda.check(primes, "primes", torch.uint32, (pnum,), dev)
+    _cuda.check(bi, "bi", torch.uint32, (pnum,), dev)
+    _cuda.check(mi_words, "mi_words", torch.uint32, (pnum, words), dev)
+    _cuda.check(m_words, "m_words", torch.uint32, (words,), dev)
+    lead = tuple(crt.shape[:-2])
+    out = torch.empty(lead + (words, length), dtype=torch.uint32, device=dev)
+    batch = prod(lead)
+    if batch:
+        _cuda.launch("icrt", "cuhe_icrt", dev, crt, out, primes, bi, mi_words,
+                     m_words, batch, pnum, words, length)
+    return out

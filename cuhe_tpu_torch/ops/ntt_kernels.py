@@ -1,0 +1,236 @@
+"""Front ends of the NTT and relinearization kernels.
+
+Counterpart of ``cuhe_tpu/ops/ntt_kernels.py:1120-1186`` (``fwd_linear``,
+``inv_linear``) and of the relinearization kernels' front ends
+(``ntt_fwd_digits``, ``relin_digits_mulacc``).  Each front end launches its
+CUDA kernel (``csrc/ntt.cu``, ``csrc/relin.cu``) for a CUDA tensor and runs
+its plain PyTorch version, the ``*_plain`` function beside it, for a CPU
+tensor; anything else raises.  There is no fallback from one to the other.
+
+Layouts are the JAX package's: u32 coefficients ``[.., n/2]``, NTT-domain
+pairs of uint32 ``[.., n]`` in mat-linear order (see ``ops/ntt.py``), eval
+keys ``[knum, pnum, n]`` in the same order.
+"""
+
+from __future__ import annotations
+
+from functools import lru_cache
+from math import prod
+
+import torch
+
+from . import _cuda, modp, ntt
+
+
+def _log2(v: int) -> int:
+    return v.bit_length() - 1
+
+
+def _is_cpu(t: torch.Tensor) -> bool:
+    if t.device.type == "cpu":
+        return True
+    if t.device.type == "cuda":
+        return False
+    raise ValueError(f"unsupported device {t.device}")
+
+
+@lru_cache(maxsize=None)
+def _device_powers(n: int, inverse: bool, device: str) -> torch.Tensor:
+    """w^e (or w^-e), e < n, as u64 bit patterns in an int64 tensor."""
+    return torch.from_numpy(ntt.powers(n, inverse).view("int64").copy()).to(device)
+
+
+def _u32_contiguous(t: torch.Tensor) -> torch.Tensor:
+    return t.view(torch.int32).contiguous().view(torch.uint32)
+
+
+def _fwd64(x, n: int):
+    """Plain forward NTT of int64 coefficients [B, n/2] -> mat int64 pair."""
+    lo = torch.cat([x, torch.zeros_like(x)], dim=-1)
+    lo, hi = ntt.dft64(lo, torch.zeros_like(lo), n)
+    return ntt.std_to_mat(lo, n), ntt.std_to_mat(hi, n)
+
+
+# ---------------------------------------------------------------------------
+# forward NTT (replaces cuhe_tpu/ops/ntt_kernels.py::_fwd_call)
+# ---------------------------------------------------------------------------
+
+def fwd_linear_plain(x: torch.Tensor, n: int):
+    """Plain version of `fwd_linear`."""
+    lead = x.shape[:-1]
+    lo, hi = _fwd64(modp.to_i64(x).reshape(-1, n // 2), n)
+    return (modp.to_u32(lo).reshape(lead + (n,)),
+            modp.to_u32(hi).reshape(lead + (n,)))
+
+
+def fwd_linear(x: torch.Tensor, n: int):
+    """Forward NTT of uint32 coefficients [.., n/2] (upper half zero) ->
+    uint32 pair [.., n] in mat-linear order."""
+    if _is_cpu(x):
+        return fwd_linear_plain(x, n)
+    n1, n2 = ntt.factors(n)
+    _cuda.check(x, "x", torch.uint32)
+    if x.shape[-1] != n // 2:
+        raise ValueError(f"x: last dim {x.shape[-1]} != n/2 = {n // 2}")
+    lead = tuple(x.shape[:-1])
+    lo = torch.empty(lead + (n,), dtype=torch.uint32, device=x.device)
+    hi = torch.empty_like(lo)
+    count = prod(lead)
+    if count:
+        _cuda.launch("ntt_fwd", "cuhe_ntt_fwd", x.device, x, lo, hi,
+                     _device_powers(n, False, str(x.device)), count,
+                     _log2(n1), _log2(n2))
+    return lo, hi
+
+
+# ---------------------------------------------------------------------------
+# inverse NTT + n^-1 + mod p (replaces ntt_kernels.py::_inv_call)
+# ---------------------------------------------------------------------------
+
+def inv_linear_plain(x_pair, n: int, p: torch.Tensor) -> torch.Tensor:
+    """Plain version of `inv_linear`."""
+    lo, hi = x_pair
+    lead = lo.shape[:-1]
+    lo = ntt.mat_to_std(modp.to_i64(lo), n).reshape(-1, n)
+    hi = ntt.mat_to_std(modp.to_i64(hi), n).reshape(-1, n)
+    lo, hi = ntt.dft64(lo, hi, n, inverse=True)
+    ninv = ntt.n_inverse(n)
+    y = modp.mul_modp64((lo, hi), (ninv & modp.M32, ninv >> 32))
+    p_b = torch.broadcast_to(modp.to_i64(p), lead).reshape(-1, 1)
+    return modp.to_u32(modp.mod_p64(y, p_b)).reshape(lead + (n,))
+
+
+def inv_linear(x_pair, n: int, p: torch.Tensor) -> torch.Tensor:
+    """Inverse NTT of a mat-linear uint32 pair [.., n], times n^-1, each
+    transform reduced mod its prime: p is uint32 broadcastable against the
+    leading dims (e.g. [pnum] for [batch, pnum, n]).  Returns uint32 [.., n]
+    in natural coefficient order."""
+    lo, hi = x_pair
+    if _is_cpu(lo):
+        return inv_linear_plain(x_pair, n, p)
+    n1, n2 = ntt.factors(n)
+    lead = tuple(lo.shape[:-1])
+    _cuda.check(lo, "x_lo", torch.uint32, lead + (n,))
+    _cuda.check(hi, "x_hi", torch.uint32, lead + (n,), lo.device)
+    _cuda.check(p, "p", torch.uint32, device=lo.device)
+    p_b = _u32_contiguous(torch.broadcast_to(p, lead))
+    count = prod(lead)
+    out = torch.empty(lead + (n,), dtype=torch.uint32, device=lo.device)
+    if count:
+        scratch = torch.empty((count, n), dtype=torch.int64, device=lo.device)
+        _cuda.launch("ntt_inv_modcrt", "cuhe_ntt_inv_modcrt", lo.device, lo,
+                     hi, scratch, out, p_b,
+                     _device_powers(n, True, str(lo.device)), count,
+                     _log2(n1), _log2(n2))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# windowed-digit forward NTTs (replaces ntt_kernels.py::_fwd_digits_call)
+# ---------------------------------------------------------------------------
+
+def ntt_fwd_digits_plain(raw: torch.Tensor, n: int, *, w: int, j0: int,
+                         c: int):
+    """Plain version of `ntt_fwd_digits`."""
+    lead = raw.shape[:-2]
+    digits = torch.stack([ntt.extract_digit(raw, w, j)
+                          for j in range(j0, j0 + c)])
+    lo, hi = _fwd64(digits.reshape(-1, n // 2), n)
+    shape = (c,) + tuple(lead) + (n,)
+    return modp.to_u32(lo).reshape(shape), modp.to_u32(hi).reshape(shape)
+
+
+def ntt_fwd_digits(raw: torch.Tensor, n: int, *, w: int, j0: int, c: int):
+    """Forward NTTs of the w-bit relinearization digits j0 .. j0+c-1 of RAW
+    words [.., w32, n/2] (window at bit w*j, ntt_1_*_ext_block semantics).
+    Returns a uint32 pair [c, .., n] in mat-linear order."""
+    if _is_cpu(raw):
+        return ntt_fwd_digits_plain(raw, n, w=w, j0=j0, c=c)
+    n1, n2 = ntt.factors(n)
+    _cuda.check(raw, "raw", torch.uint32)
+    if raw.dim() < 2 or raw.shape[-1] != n // 2:
+        raise ValueError(f"raw: expected [.., w32, {n // 2}], got {tuple(raw.shape)}")
+    if not 0 < w <= 32 or c < 1 or j0 < 0:
+        raise ValueError(f"bad digit window w={w}, j0={j0}, c={c}")
+    lead = tuple(raw.shape[:-2])
+    w32 = raw.shape[-2]
+    batch = prod(lead)
+    lo = torch.empty((c,) + lead + (n,), dtype=torch.uint32, device=raw.device)
+    hi = torch.empty_like(lo)
+    if batch:
+        _cuda.launch("ntt_fwd_digits", "cuhe_ntt_fwd_digits", raw.device, raw,
+                     lo, hi, _device_powers(n, False, str(raw.device)), batch,
+                     w32, w, j0, c, _log2(n1), _log2(n2))
+    return lo, hi
+
+
+# ---------------------------------------------------------------------------
+# eval-key multiply-accumulate (replaces the contraction of
+# ntt_kernels.py::_relin_call and ::_relin_p_call)
+# ---------------------------------------------------------------------------
+
+def relin_mulacc_plain(d_pair, ek_pair, *, j0: int, pnum: int, acc=None):
+    """Plain version of `relin_mulacc`: one digit at a time, so the
+    [c, .., pnum, n] product is never formed."""
+    d_lo, d_hi = d_pair
+    out = None if acc is None else (modp.to_i64(acc[0]), modp.to_i64(acc[1]))
+    for jj in range(d_lo.shape[0]):
+        d = (modp.to_i64(d_lo[jj])[..., None, :],
+             modp.to_i64(d_hi[jj])[..., None, :])
+        e = (modp.to_i64(ek_pair[0][j0 + jj, :pnum]),
+             modp.to_i64(ek_pair[1][j0 + jj, :pnum]))
+        prod_ = modp.mul_modp64(d, e)
+        out = prod_ if out is None else modp.add_modp64(out, prod_)
+    return modp.to_u32(out[0]), modp.to_u32(out[1])
+
+
+def relin_mulacc(d_pair, ek_pair, *, j0: int, pnum: int, acc=None):
+    """acc + sum_jj d[jj] * ek[j0 + jj, :pnum] mod P.
+
+    d_pair: uint32 pair [c, .., n] (digit NTTs j0 .. j0+c-1, mat-linear);
+    ek_pair: uint32 pair [knum, pnum_ek, n]; acc: None or a pair
+    [.., pnum, n].  Returns a new uint32 pair [.., pnum, n]."""
+    d_lo, d_hi = d_pair
+    if _is_cpu(d_lo):
+        return relin_mulacc_plain(d_pair, ek_pair, j0=j0, pnum=pnum, acc=acc)
+    dev = d_lo.device
+    c, n = d_lo.shape[0], d_lo.shape[-1]
+    lead = tuple(d_lo.shape[1:-1])
+    _cuda.check(d_lo, "d_lo", torch.uint32)
+    _cuda.check(d_hi, "d_hi", torch.uint32, d_lo.shape, dev)
+    ek_lo, ek_hi = ek_pair
+    _cuda.check(ek_lo, "ek_lo", torch.uint32, device=dev)
+    _cuda.check(ek_hi, "ek_hi", torch.uint32, ek_lo.shape, dev)
+    knum, pnum_ek, n_ek = ek_lo.shape
+    if n_ek != n or j0 < 0 or j0 + c > knum or not 0 < pnum <= pnum_ek:
+        raise ValueError(f"eval keys {tuple(ek_lo.shape)} do not cover "
+                         f"digits {j0}..{j0 + c - 1}, {pnum} planes, n={n}")
+    shape = lead + (pnum, n)
+    if acc is not None:
+        _cuda.check(acc[0], "acc_lo", torch.uint32, shape, dev)
+        _cuda.check(acc[1], "acc_hi", torch.uint32, shape, dev)
+    out_lo = torch.empty(shape, dtype=torch.uint32, device=dev)
+    out_hi = torch.empty_like(out_lo)
+    batch = prod(lead)
+    if batch:
+        _cuda.launch("relin_mulacc", "cuhe_relin_mulacc", dev, d_lo, d_hi,
+                     ek_lo, ek_hi, None if acc is None else acc[0],
+                     None if acc is None else acc[1], out_lo, out_hi, batch,
+                     pnum, pnum_ek, n, c, j0)
+    return out_lo, out_hi
+
+
+def relin_digits_mulacc(raw, ek_pair, n: int, *, w: int, j0: int, c: int,
+                        pnum: int, acc=None):
+    """acc + sum_j ntt(digit_j(raw)) * ek[j, :pnum] over j0 <= j < j0+c:
+    the function of cuhe_tpu's fused relinearization kernels, as the digit
+    NTT kernel followed by the multiply-accumulate kernel."""
+    return relin_mulacc(ntt_fwd_digits(raw, n, w=w, j0=j0, c=c), ek_pair,
+                        j0=j0, pnum=pnum, acc=acc)
+
+
+def relin_digits_mulacc_plain(raw, ek_pair, n: int, *, w: int, j0: int,
+                              c: int, pnum: int, acc=None):
+    """Plain version of `relin_digits_mulacc`."""
+    return relin_mulacc_plain(ntt_fwd_digits_plain(raw, n, w=w, j0=j0, c=c),
+                              ek_pair, j0=j0, pnum=pnum, acc=acc)

@@ -1,0 +1,95 @@
+"""The fused homomorphic gate step: (a, b) -> mod_switch(relin(a AND b)).
+
+Counterpart of ``cuhe_tpu/parallel/mesh.py:49-121``
+(``batched_and_relin_modswitch``) with no mesh (the hot
+path of every homomorphic circuit: DHS AND gates, the PRINCE S-box layers).
+It takes batched NTT-domain ciphertext pairs ``[batch, pnum, n]`` (uint32,
+mat-linear) and runs, in order:
+
+  1. AND: pointwise mul mod P;
+  2. inverse NTT with the mod-p epilogue;             (kernel)
+  3. polynomial Barrett: 2 forward, 2 inverse NTTs;  (kernels)
+  4. ICRT to RAW words;                              (kernel)
+  5. relinearization: digit NTTs + eval-key mul-acc; (kernels)
+  6. inverse NTT and Barrett again;                  (kernels)
+  7. modulus switch, dropping one prime.
+
+and returns CRT residues ``[batch, pnum-1, n/2]`` at level lvl+1.  The
+tables are module buffers, so ``step(a_lo, a_hi, b_lo, b_hi)`` is the whole
+call.  ``plain=True`` runs the plain PyTorch versions of the kernels on the
+module's device: the reference the kernels are held against on the card.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from .context import Context
+from .ops import crt, modp
+from .ops import ntt_kernels as nk
+from .ops.barrett import barrett_reduce
+from .ops.pointwise import mod_switch
+from .ops.relin import relinearize
+
+
+def _u32(a) -> torch.Tensor:
+    return torch.from_numpy(a.astype("uint32"))
+
+
+class GateStep(nn.Module):
+    """Batched AND + relinearize + modswitch at one level of a Context."""
+
+    def __init__(self, ctx: Context, lvl: int, *, plain: bool = False):
+        super().__init__()
+        if ctx.ek_ntt is None:
+            raise RuntimeError("eval keys not initialised")
+        pr = ctx.params
+        pn = pr.num_crt_prime_lvl(lvl)
+        self.ctx = ctx
+        self.lvl = lvl
+        self.n = ctx.n
+        self.mod_len = ctx.mod_len
+        self.mod_msg = pr.mod_msg
+        self.w = pr.log_relin
+        self.knum = pr.num_eval_key_lvl(lvl)
+        self.pn = pn
+        m_words, mi_words, bi = ctx._icrt[lvl]
+        u_lo, u_hi, m_lo, m_hi, m_crt = ctx.barrett_args()
+        tables = {
+            "primes": _u32(ctx.primes_np[:pn]),
+            "invp_last": _u32(ctx.invp_np[pn - 1, : pn - 1]),
+            "bi": _u32(bi), "mi_words": _u32(mi_words),
+            "m_words": _u32(m_words),
+            "u_lo": u_lo[:pn], "u_hi": u_hi[:pn],
+            "m_lo": m_lo[:pn], "m_hi": m_hi[:pn], "m_crt": m_crt[:pn],
+            "ek_lo": ctx.ek_ntt[0], "ek_hi": ctx.ek_ntt[1],
+        }
+        for name, t in tables.items():
+            self.register_buffer(name, t.to(ctx.device).contiguous(),
+                                 persistent=False)
+        if plain:
+            self._fwd, self._inv = nk.fwd_linear_plain, nk.inv_linear_plain
+            self._icrt = crt.icrt_to_raw_plain
+            self._digits_mulacc = nk.relin_digits_mulacc_plain
+        else:
+            self._fwd, self._inv = nk.fwd_linear, nk.inv_linear
+            self._icrt = crt.icrt_to_raw
+            self._digits_mulacc = nk.relin_digits_mulacc
+
+    def _n2c_barrett(self, pair) -> torch.Tensor:
+        full = self._inv(pair, self.n, self.primes)
+        return barrett_reduce(full, mod_len=self.mod_len, n=self.n,
+                              u_ntt=(self.u_lo, self.u_hi),
+                              m_ntt=(self.m_lo, self.m_hi), m_crt=self.m_crt,
+                              primes=self.primes, fwd=self._fwd, inv=self._inv)
+
+    def forward(self, a_lo, a_hi, b_lo, b_hi) -> torch.Tensor:
+        prod = modp.mul_modp((a_lo, a_hi), (b_lo, b_hi))
+        red = self._n2c_barrett(prod)
+        raw = self._icrt(red, self.primes, self.bi, self.mi_words, self.m_words)
+        r = relinearize(raw, self.ek_lo, self.ek_hi, w=self.w, knum=self.knum,
+                        pnum=self.pn, n=self.n,
+                        digits_mulacc=self._digits_mulacc)
+        return mod_switch(self._n2c_barrett(r), self.primes, self.invp_last,
+                          self.mod_msg)

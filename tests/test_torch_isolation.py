@@ -1,0 +1,81 @@
+"""The port stands alone: cuhe_tpu_torch and chip_smoke.py import neither jax
+nor anything of cuhe_tpu, the kernel modules import without nvcc or a card,
+and an entry point asked for CUDA without a card raises instead of running
+on the CPU."""
+
+import ast
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+from cuhe_tpu_torch import context, entry
+from cuhe_tpu_torch.ops import _cuda
+from cuhe_tpu_torch.ops import ntt_kernels as nk
+from cuhe_tpu_torch.params import make_params
+
+REPO = Path(__file__).resolve().parent.parent
+PORT_FILES = sorted((REPO / "cuhe_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+MODULES = sorted(
+    "cuhe_tpu_torch." + ".".join(p.relative_to(REPO / "cuhe_tpu_torch")
+                                 .with_suffix("").parts)
+    for p in (REPO / "cuhe_tpu_torch").rglob("*.py") if p.name != "__init__.py")
+
+
+def _forbidden(name: str) -> bool:
+    return name.split(".")[0] in ("jax", "jaxlib", "cuhe_tpu")
+
+
+def test_no_file_imports_jax_or_cuhe_tpu():
+    assert len(PORT_FILES) > 10
+    for path in PORT_FILES:
+        for node in ast.walk(ast.parse(path.read_text())):
+            names = []
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module]
+            bad = [n for n in names if _forbidden(n)]
+            assert not bad, f"{path.relative_to(REPO)} imports {bad}"
+
+
+def test_importing_the_port_loads_neither_jax_nor_cuhe_tpu():
+    code = ("import sys\n"
+            + "".join(f"import {m}\n" for m in MODULES)
+            + "from cuhe_tpu_torch.ops import _cuda\n"
+            + "assert _cuda.lib.cache_info().currsize == 0, 'built at import'\n"
+            + "print(sorted(m for m in sys.modules if m.split('.')[0] in "
+              "('jax', 'jaxlib', 'cuhe_tpu')))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+
+
+def test_build_without_nvcc_raises(monkeypatch, tmp_path):
+    monkeypatch.setattr(_cuda, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(_cuda.shutil, "which", lambda name: None)
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path / "no-cuda"))
+    with pytest.raises(RuntimeError, match="nvcc"):
+        _cuda.build()
+
+
+def test_cuda_entry_points_without_a_card_raise(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no card"):
+        context.Context(make_params(*entry.ENTRY_PARAMS))
+    with pytest.raises(RuntimeError, match="no card"):
+        entry.entry()
+    with pytest.raises(RuntimeError, match="no card"):
+        entry.make_prince_l0_step(batch=2)
+
+
+def test_front_ends_take_only_cpu_or_cuda_tensors():
+    n = 16384
+    meta = torch.empty((1, n // 2), dtype=torch.uint32, device="meta")
+    with pytest.raises(ValueError, match="device"):
+        nk.fwd_linear(meta, n)
+    with pytest.raises(ValueError, match="CUDA"):
+        _cuda.check(torch.zeros(4, dtype=torch.uint32), "x", torch.uint32)
