@@ -6,7 +6,7 @@
 Phases (any failure ends the run with a non-zero exit and no result line):
   1. build the CUDA kernels of cuhe_tpu_torch/csrc with nvcc (sm_90a), and
      measure the card's integer multiply rates (csrc/calib.cu), which the
-     operation side of each kernel's bound uses;
+     operation side of each kernel's bound uses, and the SM clock under load;
   2. hold every kernel bit for bit against its plain PyTorch version on the
      card, and time both (CUDA events, median after warm-up) at the gate
      step's shapes;
@@ -15,7 +15,14 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      versions (which the tests hold against the JAX package);
   4. PRINCE level 0 (n = 32768, 25 primes, 40 digits, batch 32): the first
      two ciphertexts against the plain path on the card, then the launch
-     counts of one batch-32 step (the main path), its time and peak memory.
+     counts of one batch-32 step (the main path), its time and peak memory;
+  5. the probes (cuhe_tpu_torch/probes, `python3 -m cuhe_tpu_torch.probes`):
+     every probe kernel and NTT pass against its plain version on the card,
+     then the probe run, with its own launch counts: tensor-core dots (P1),
+     add / xor / shift (P2), the NTT passes at the TPU stage ablations'
+     points (P3, P4) and at PRINCE level 0's shapes, each timed output
+     held against its plain version's.
+Every kernel time is held against its bound: a time under it fails the run.
 It prints a `kernels` JSON line, the card's name and power limit, and last
 {"ok": true, "device": {...}}.  It needs one card and no network.
 """
@@ -24,89 +31,13 @@ from __future__ import annotations
 
 import hashlib
 import json
-import statistics
-import subprocess
 import sys
 import time
 from pathlib import Path
 
-import numpy as np
-
-# H100 SXM memory rate (NVIDIA data sheet, 700 W).  The data sheet gives no
-# integer rates; the operation side of each bound uses the multiply rates
-# that csrc/calib.cu measures on this card in this run (phase 1).
-HBM_BYTES_PER_S = 3.35e12
-
 
 def log(msg: str) -> None:
     print(msg, flush=True)
-
-
-def gpu_line() -> str:
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
-
-
-def cuda_ms(fn, reps: int, warm: int = 1) -> float:
-    import torch
-    for _ in range(warm):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
-
-
-def bound(nbytes: float, ops: dict, rates: dict) -> tuple[float, str]:
-    """Least time in ms: the larger of the bytes over the memory rate and
-    the multiplies of each kind over that kind's measured peak rate."""
-    tb = nbytes / HBM_BYTES_PER_S * 1e3
-    to = max(count / rates[kind] * 1e3 for kind, count in ops.items())
-    return (tb, "bytes") if tb >= to else (to, "operations")
-
-
-def ntt_products(n: int) -> int:
-    """64x64->128-bit products of a length-n NTT over Z_P by radix-64
-    passes: the inner length-64 DFTs need only shifts, since every 64th root
-    of unity mod P is a power of two (8 has order 64), and so does each
-    twiddle w^(k1 j2) between passes whose order divides 64.  The other
-    twiddles are counted; additions, shifts and reductions are not."""
-    if n <= 64:
-        return 0
-    m = n // 64
-    k1, j2 = np.arange(64)[:, None], np.arange(m)[None, :]
-    return int(np.count_nonzero(k1 * j2 % m)) + 64 * ntt_products(m)
-
-
-def calibrate(dev, launch, card: str) -> dict:
-    """Peak multiply rates of this card (per second) from csrc/calib.cu.
-
-    mad32: 32x32->64 products, the faster of one wide instruction (mode 1)
-    and a low/high pair (mode 2).  mul64: 64x64->128 products, the faster
-    of the compiler's own (mode 0) and four 32x32->64 products (schoolbook).
-    """
-    import torch
-    blocks = torch.cuda.get_device_properties(dev).multi_processor_count * 8
-    iters = 4096
-    out = torch.empty(blocks * 256, dtype=torch.int64, device=dev)
-    per_s = []
-    for mode in range(3):
-        ms = cuda_ms(lambda: launch(out, mode, iters, blocks), 10, warm=2)
-        per_s.append(blocks * 256 * 8 * iters / (ms * 1e-3))
-    log(f"[calib] per second: {per_s[0] / 1e12:.4f} T 64x64->128 products, "
-        f"{per_s[1] / 1e12:.4f} T wide and {per_s[2] / 1e12:.4f} T "
-        f"low/high-pair 32x32->64 products [{card}]")
-    mad32 = max(per_s[1], per_s[2])
-    return {"mad32": mad32, "mul64": max(per_s[0], mad32 / 4)}
 
 
 def profile_step(run, step_ms: float, card: str) -> None:
@@ -155,6 +86,10 @@ def main() -> int:
     from cuhe_tpu_torch.ops import ntt_kernels as nk
     from cuhe_tpu_torch.ops.relin import digit_chunk
     from cuhe_tpu_torch.params import make_params
+    from cuhe_tpu_torch.probes import calib as probe_calib
+    from cuhe_tpu_torch.probes import suite as probe_suite
+    from cuhe_tpu_torch.probes.timing import (bound, check_bound, cuda_ms,
+                                              gpu_line, ntt_products)
     from cuhe_tpu_torch.step import GateStep
 
     card = gpu_line()
@@ -165,8 +100,9 @@ def main() -> int:
     so, build_s = _cuda.build()
     _cuda.lib()
     log(f"[build] {so.name} in {build_s:.1f} s")
-    rates = calibrate(dev, lambda *a: _cuda.launch("calib", "cuhe_calib",
-                                                   dev, *a), card)
+    clock = probe_calib.sample_sm_clock(dev)
+    rates = probe_calib.mul_rates(dev)
+    log(f"[calib] {probe_calib.rates_line(rates, clock)} [{card}]")
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(2026)
@@ -286,6 +222,7 @@ def main() -> int:
             ms = cuda_ms(kern, 20)
             plain_ms = cuda_ms(plain, reps_plain)
             b_ms, b_by = bound(*model[name], rates)
+            check_bound(f"{name} {tag}", ms, b_ms)
             results[(name, tag)] = dict(ms=ms, plain_ms=plain_ms,
                                         bound_ms=b_ms, bound_by=b_by)
             log(f"[time] {name} {tag}: kernel {ms:.4f} ms, plain "
@@ -337,6 +274,18 @@ def main() -> int:
         f"[{card}]")
 
     profile_step(lambda: step(*args), step_ms, card)
+    del step, args, two, ref, got2, out
+    torch.cuda.empty_cache()
+
+    # ---- 5. probes ---------------------------------------------------------
+    t0 = time.perf_counter()
+    probe_suite.check(dev, log)
+    _cuda.reset_launches()
+    records = probe_suite.run(dev, log, rates=rates, clock=clock)
+    torch.cuda.synchronize()
+    probe_launches = dict(_cuda.LAUNCHES)
+    log(f"[probes] launches in the probe run: {probe_launches}; "
+        f"{time.perf_counter() - t0:.1f} s with the checks")
 
     sources = {"ntt_fwd": ("cuhe_tpu_torch/csrc/ntt.cu",
                            "cuhe_tpu/ops/ntt_kernels.py:330"),
@@ -358,6 +307,7 @@ def main() -> int:
                         "max_abs_err": 0, "ms": r["ms"],
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"], "library_ms": None})
+    kernels += probe_suite.kernel_line(records, probe_launches)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(gpu_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

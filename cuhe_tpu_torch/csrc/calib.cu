@@ -3,10 +3,11 @@
 //
 // The card's data sheet gives no integer rates beside the int8 tensor
 // cores, and the Goldilocks kernels run on the integer pipes.  This is the
-// Hopper counterpart of the TPU's VPU rate probe
-// (scripts/tpu_probe_calib.py::bench_vpu): every thread runs kChains
-// independent dependency chains of one multiply each, with nothing else in
-// the loop, so the launch runs at the card's peak rate for that multiply.
+// Hopper counterpart of the multiply half only of the TPU's VPU rate probe
+// (scripts/tpu_probe_calib.py::bench_vpu); its add / xor / shift half is
+// csrc/probe_alu.cu.  Every thread runs kChains independent dependency
+// chains of one multiply each, with nothing else in the loop, so the launch
+// runs at the card's peak rate for that multiply.
 //   mode 0: 64x64 -> 128-bit products.  Chain a takes the low word (a * y),
 //           chain b the high word (__umul64hi(b, y)); one step of both is
 //           one full product, the part of a Goldilocks multiply that no

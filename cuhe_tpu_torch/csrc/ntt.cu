@@ -29,6 +29,13 @@
 // blocks fit an SM) and touches device memory once per pass: two reads and
 // two writes of each coefficient per transform.  Twiddles come from one
 // power table per direction (w^e, e < n), read through the read-only cache.
+//
+// Stop points.  Each pass takes a compile-time STOP (enum Stop below); the
+// transforms instantiate kFull, and the per-pass probes
+// (cuhe_tpu_torch/probes/ablate.py, the counterparts of the TPU stage
+// ablations scripts/tpu_probe_inv_ablate.py and tpu_probe_fwd32_ablate.py)
+// launch the same kernels stopped earlier, so a probe times exactly the code
+// the transforms run, up to its stop point.
 
 #include <cuda_runtime.h>
 
@@ -39,6 +46,13 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kLogTile = 12;  // 4096 words = 32 KB of shared memory per block
 constexpr int kSmemBytes = (1 << kLogTile) * 8;
+
+// Where a pass stops.  kIo: load and store only (with the load's bit-reversal
+// permutation).  kNoEpilogue: the pass's DFTs without its epilogue, which is
+// the twiddle multiply of the forward column and inverse row passes and the
+// mod p of the inverse column pass (whose n^-1 multiply stays).  kFull: the
+// whole pass.
+enum Stop { kIo = 0, kNoEpilogue = 1, kFull = 2 };
 
 __device__ __forceinline__ int bitrev(int v, int bits) {
   return (int)(__brev((unsigned)v) >> (32 - bits));
@@ -86,7 +100,7 @@ __device__ void smem_dft(uint64_t* s, int logL, int logcnt, int si, int sc,
 // DIGIT: the input is the w-bit window at bit w * (j0 + digit) of RAW words
 // [batch, w32, n/2] (ntt_1_*_ext_block semantics: planes past the top word
 // read zero, no high-word bits at shift 0); transform = digit * batch + b.
-template <bool DIGIT>
+template <bool DIGIT, int STOP>
 __global__ void __launch_bounds__(kThreads)
 fwd_cols(const uint32_t* __restrict__ x, uint32_t* __restrict__ out_lo,
          uint32_t* __restrict__ out_hi, const uint64_t* __restrict__ pw,
@@ -131,12 +145,14 @@ fwd_cols(const uint32_t* __restrict__ x, uint32_t* __restrict__ out_lo,
     s[(bitrev(r, logn1) << logtc) + cc] = v;
   }
   __syncthreads();
-  smem_dft<true>(s, logn1, logtc, tc, 1, pw, logn);
+  if constexpr (STOP != kIo) smem_dft<true>(s, logn1, logtc, tc, 1, pw, logn);
 
   const size_t ob = (size_t)t * n;
   for (int idx = threadIdx.x; idx < (n1 << logtc); idx += blockDim.x) {
     const int k1 = idx >> logtc, j2 = c0 + (idx & (tc - 1));
-    const uint64_t v = gl_mul(s[idx], ldg64(pw + ((k1 * j2) & (n - 1))));
+    uint64_t v = s[idx];
+    if constexpr (STOP == kFull)
+      v = gl_mul(v, ldg64(pw + ((k1 * j2) & (n - 1))));
     gl_store(out_lo, out_hi, ob + (size_t)k1 * n2 + j2, v);
   }
 }
@@ -145,7 +161,7 @@ fwd_cols(const uint32_t* __restrict__ x, uint32_t* __restrict__ out_lo,
 // blockIdx.x: length-n2 DFTs along each row.
 // !INV: forward stage 2, in place on the planes.
 // INV: inverse stage 1 (pw holds w^-e), times w^-(k1 t2), into u64 scratch.
-template <bool INV>
+template <bool INV, int STOP>
 __global__ void __launch_bounds__(kThreads)
 ntt_rows(const uint32_t* in_lo, const uint32_t* in_hi, uint32_t* out_lo,
          uint32_t* out_hi, uint64_t* out64, const uint64_t* __restrict__ pw,
@@ -162,13 +178,15 @@ ntt_rows(const uint32_t* in_lo, const uint32_t* in_hi, uint32_t* out_lo,
     s[(r << logn2) + bitrev(j, logn2)] = gl_load(in_lo, in_hi, base + idx);
   }
   __syncthreads();
-  smem_dft<false>(s, logn2, logr, 1, n2, pw, logn);
+  if constexpr (STOP != kIo) smem_dft<false>(s, logn2, logr, 1, n2, pw, logn);
 
   for (int idx = threadIdx.x; idx < (1 << kLogTile); idx += blockDim.x) {
     if (INV) {
       const int k1 = r0 + (idx >> logn2), t2 = idx & (n2 - 1);
-      out64[base + idx] =
-          gl_mul(s[idx], ldg64(pw + ((k1 * t2) & (n - 1))));
+      uint64_t v = s[idx];
+      if constexpr (STOP == kFull)
+        v = gl_mul(v, ldg64(pw + ((k1 * t2) & (n - 1))));
+      out64[base + idx] = v;
     } else {
       gl_store(out_lo, out_hi, base + idx, s[idx]);
     }
@@ -177,10 +195,13 @@ ntt_rows(const uint32_t* in_lo, const uint32_t* in_hi, uint32_t* out_lo,
 
 // Inverse column pass: length-n1 DFTs over k1 of the scratch, times n^-1,
 // reduced mod p[transform], written at natural index t1 * n2 + t2.
+// kNoEpilogue: without the mod p, the canonical value's words into out and
+// out_hi.
+template <int STOP>
 __global__ void __launch_bounds__(kThreads)
 inv_cols(const uint64_t* __restrict__ a, uint32_t* __restrict__ out,
-         const uint32_t* __restrict__ p, const uint64_t* __restrict__ pwi,
-         int logn1, int logn2) {
+         uint32_t* __restrict__ out_hi, const uint32_t* __restrict__ p,
+         const uint64_t* __restrict__ pwi, int logn1, int logn2) {
   extern __shared__ uint64_t s[];
   const int logtc = kLogTile - logn1;
   const int tc = 1 << logtc;
@@ -195,15 +216,54 @@ inv_cols(const uint64_t* __restrict__ a, uint32_t* __restrict__ out,
     s[(bitrev(k1, logn1) << logtc) + cc] = a[base + (size_t)k1 * n2 + c0 + cc];
   }
   __syncthreads();
-  smem_dft<true>(s, logn1, logtc, tc, 1, pwi, logn);
+  if constexpr (STOP != kIo) smem_dft<true>(s, logn1, logtc, tc, 1, pwi, logn);
 
   // n^-1 = P - (P - 1) / n for n a power of two
   const uint64_t ninv = GL_P - ((GL_P - 1) >> logn);
-  const uint64_t pt = p[t];
+  const uint64_t pt = STOP == kFull ? p[t] : 0;
   for (int idx = threadIdx.x; idx < (n1 << logtc); idx += blockDim.x) {
     const int t1 = idx >> logtc, t2 = c0 + (idx & (tc - 1));
-    out[base + (size_t)t1 * n2 + t2] = (uint32_t)(gl_mul(s[idx], ninv) % pt);
+    const size_t o = base + (size_t)t1 * n2 + t2;
+    if constexpr (STOP == kFull) {
+      out[o] = (uint32_t)(gl_mul(s[idx], ninv) % pt);
+    } else {
+      gl_store(out, out_hi, o, gl_mul(s[idx], ninv));
+    }
   }
+}
+
+// One launch of each pass over `count` transforms.
+template <bool DIGIT, int STOP>
+cudaError_t launch_cols(const uint32_t* x, uint32_t* lo, uint32_t* hi,
+                        const uint64_t* pw, int count, int logn1, int logn2,
+                        int batch, int w32, int w, int j0,
+                        cudaStream_t stream) {
+  const dim3 g(count, 1 << (logn2 - (kLogTile - logn1)));
+  fwd_cols<DIGIT, STOP><<<g, kThreads, kSmemBytes, stream>>>(
+      x, lo, hi, pw, logn1, logn2, batch, w32, w, j0);
+  return cudaGetLastError();
+}
+
+template <bool INV, int STOP>
+cudaError_t launch_rows(const uint32_t* in_lo, const uint32_t* in_hi,
+                        uint32_t* out_lo, uint32_t* out_hi, uint64_t* out64,
+                        const uint64_t* pw, int count, int logn1, int logn2,
+                        cudaStream_t stream) {
+  const dim3 g(count, 1 << (logn1 - (kLogTile - logn2)));
+  ntt_rows<INV, STOP><<<g, kThreads, kSmemBytes, stream>>>(
+      in_lo, in_hi, out_lo, out_hi, out64, pw, logn1, logn2);
+  return cudaGetLastError();
+}
+
+template <int STOP>
+cudaError_t launch_inv_cols(const uint64_t* a, uint32_t* out,
+                            uint32_t* out_hi, const uint32_t* p,
+                            const uint64_t* pwi, int count, int logn1,
+                            int logn2, cudaStream_t stream) {
+  const dim3 g(count, 1 << (logn2 - (kLogTile - logn1)));
+  inv_cols<STOP><<<g, kThreads, kSmemBytes, stream>>>(a, out, out_hi, p, pwi,
+                                                      logn1, logn2);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -218,15 +278,11 @@ const char* cuhe_error_string(int e) {
 int cuhe_ntt_fwd(const uint32_t* x, uint32_t* lo, uint32_t* hi,
                  const uint64_t* pw, int count, int logn1, int logn2,
                  cudaStream_t stream) {
-  const dim3 g1(count, 1 << (logn2 - (kLogTile - logn1)));
-  fwd_cols<false><<<g1, kThreads, kSmemBytes, stream>>>(
-      x, lo, hi, pw, logn1, logn2, 1, 0, 0, 0);
-  cudaError_t e = cudaGetLastError();
+  cudaError_t e = launch_cols<false, kFull>(x, lo, hi, pw, count, logn1,
+                                            logn2, 1, 0, 0, 0, stream);
   if (e != cudaSuccess) return (int)e;
-  const dim3 g2(count, 1 << (logn1 - (kLogTile - logn2)));
-  ntt_rows<false><<<g2, kThreads, kSmemBytes, stream>>>(
-      lo, hi, lo, hi, nullptr, pw, logn1, logn2);
-  return (int)cudaGetLastError();
+  return (int)launch_rows<false, kFull>(lo, hi, lo, hi, nullptr, pw, count,
+                                        logn1, logn2, stream);
 }
 
 // raw: u32 [batch, w32, n/2] -> lo, hi: u32 [c, batch, n] mat-linear NTTs of
@@ -235,15 +291,11 @@ int cuhe_ntt_fwd_digits(const uint32_t* raw, uint32_t* lo, uint32_t* hi,
                         const uint64_t* pw, int batch, int w32, int w, int j0,
                         int c, int logn1, int logn2, cudaStream_t stream) {
   const int count = c * batch;
-  const dim3 g1(count, 1 << (logn2 - (kLogTile - logn1)));
-  fwd_cols<true><<<g1, kThreads, kSmemBytes, stream>>>(
-      raw, lo, hi, pw, logn1, logn2, batch, w32, w, j0);
-  cudaError_t e = cudaGetLastError();
+  cudaError_t e = launch_cols<true, kFull>(raw, lo, hi, pw, count, logn1,
+                                           logn2, batch, w32, w, j0, stream);
   if (e != cudaSuccess) return (int)e;
-  const dim3 g2(count, 1 << (logn1 - (kLogTile - logn2)));
-  ntt_rows<false><<<g2, kThreads, kSmemBytes, stream>>>(
-      lo, hi, lo, hi, nullptr, pw, logn1, logn2);
-  return (int)cudaGetLastError();
+  return (int)launch_rows<false, kFull>(lo, hi, lo, hi, nullptr, pw, count,
+                                        logn1, logn2, stream);
 }
 
 // x_lo, x_hi: u32 [count, n] mat-linear; scratch: u64 [count, n];
@@ -252,15 +304,81 @@ int cuhe_ntt_inv_modcrt(const uint32_t* x_lo, const uint32_t* x_hi,
                         uint64_t* scratch, uint32_t* out, const uint32_t* p,
                         const uint64_t* pwi, int count, int logn1, int logn2,
                         cudaStream_t stream) {
-  const dim3 g1(count, 1 << (logn1 - (kLogTile - logn2)));
-  ntt_rows<true><<<g1, kThreads, kSmemBytes, stream>>>(
-      x_lo, x_hi, nullptr, nullptr, scratch, pwi, logn1, logn2);
-  cudaError_t e = cudaGetLastError();
+  cudaError_t e = launch_rows<true, kFull>(x_lo, x_hi, nullptr, nullptr,
+                                           scratch, pwi, count, logn1, logn2,
+                                           stream);
   if (e != cudaSuccess) return (int)e;
-  const dim3 g2(count, 1 << (logn2 - (kLogTile - logn1)));
-  inv_cols<<<g2, kThreads, kSmemBytes, stream>>>(scratch, out, p, pwi, logn1,
-                                                  logn2);
-  return (int)cudaGetLastError();
+  return (int)launch_inv_cols<kFull>(scratch, out, nullptr, p, pwi, count,
+                                     logn1, logn2, stream);
+}
+
+// The passes one at a time, for the per-pass probes (probes/ablate.py).
+// Forward column pass, x: u32 [count, n/2] -> lo, hi: u32 [count, n] at
+// [k1, j2]: load and store only, the DFTs without the twiddle, or the whole
+// pass (the first launch of cuhe_ntt_fwd).
+int cuhe_ntt_cols_io(const uint32_t* x, uint32_t* lo, uint32_t* hi,
+                     const uint64_t* pw, int count, int logn1, int logn2,
+                     cudaStream_t stream) {
+  return (int)launch_cols<false, kIo>(x, lo, hi, pw, count, logn1, logn2, 1,
+                                      0, 0, 0, stream);
+}
+
+int cuhe_ntt_cols_notw(const uint32_t* x, uint32_t* lo, uint32_t* hi,
+                       const uint64_t* pw, int count, int logn1, int logn2,
+                       cudaStream_t stream) {
+  return (int)launch_cols<false, kNoEpilogue>(x, lo, hi, pw, count, logn1,
+                                              logn2, 1, 0, 0, 0, stream);
+}
+
+int cuhe_ntt_cols(const uint32_t* x, uint32_t* lo, uint32_t* hi,
+                  const uint64_t* pw, int count, int logn1, int logn2,
+                  cudaStream_t stream) {
+  return (int)launch_cols<false, kFull>(x, lo, hi, pw, count, logn1, logn2,
+                                        1, 0, 0, 0, stream);
+}
+
+// Forward row pass (the second launch of cuhe_ntt_fwd), out of place:
+// in_lo, in_hi -> out_lo, out_hi, all u32 [count, n].
+int cuhe_ntt_rows(const uint32_t* in_lo, const uint32_t* in_hi,
+                  uint32_t* out_lo, uint32_t* out_hi, const uint64_t* pw,
+                  int count, int logn1, int logn2, cudaStream_t stream) {
+  return (int)launch_rows<false, kFull>(in_lo, in_hi, out_lo, out_hi,
+                                        nullptr, pw, count, logn1, logn2,
+                                        stream);
+}
+
+// Inverse row pass, x_lo, x_hi: u32 [count, n] mat-linear -> out: u64
+// [count, n]: load and store only, or the whole pass (the first launch of
+// cuhe_ntt_inv_modcrt).
+int cuhe_ntt_rows_io(const uint32_t* x_lo, const uint32_t* x_hi,
+                     uint64_t* out, const uint64_t* pwi, int count, int logn1,
+                     int logn2, cudaStream_t stream) {
+  return (int)launch_rows<true, kIo>(x_lo, x_hi, nullptr, nullptr, out, pwi,
+                                     count, logn1, logn2, stream);
+}
+
+int cuhe_ntt_inv_rows(const uint32_t* x_lo, const uint32_t* x_hi,
+                      uint64_t* out, const uint64_t* pwi, int count,
+                      int logn1, int logn2, cudaStream_t stream) {
+  return (int)launch_rows<true, kFull>(x_lo, x_hi, nullptr, nullptr, out, pwi,
+                                       count, logn1, logn2, stream);
+}
+
+// Inverse column pass, a: u64 [count, n] -> lo, hi: u32 [count, n] without
+// the mod p, or out: u32 [count, n] mod p[count] (the second launch of
+// cuhe_ntt_inv_modcrt).
+int cuhe_ntt_inv_nomod(const uint64_t* a, uint32_t* lo, uint32_t* hi,
+                       const uint64_t* pwi, int count, int logn1, int logn2,
+                       cudaStream_t stream) {
+  return (int)launch_inv_cols<kNoEpilogue>(a, lo, hi, nullptr, pwi, count,
+                                           logn1, logn2, stream);
+}
+
+int cuhe_ntt_inv_cols(const uint64_t* a, uint32_t* out, const uint32_t* p,
+                      const uint64_t* pwi, int count, int logn1, int logn2,
+                      cudaStream_t stream) {
+  return (int)launch_inv_cols<kFull>(a, out, nullptr, p, pwi, count, logn1,
+                                     logn2, stream);
 }
 
 }  // extern "C"

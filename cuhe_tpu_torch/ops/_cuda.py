@@ -42,6 +42,19 @@ _SIGNATURES = {
     "cuhe_icrt": "pppppp" + "iiii",
     "cuhe_relin_mulacc": "pppppppp" + "iiiiii",
     "cuhe_calib": "p" + "iii",
+    # the NTT passes one at a time (probes/ablate.py)
+    "cuhe_ntt_cols_io": "pppp" + "iii",
+    "cuhe_ntt_cols_notw": "pppp" + "iii",
+    "cuhe_ntt_cols": "pppp" + "iii",
+    "cuhe_ntt_rows": "ppppp" + "iii",
+    "cuhe_ntt_rows_io": "pppp" + "iii",
+    "cuhe_ntt_inv_rows": "pppp" + "iii",
+    "cuhe_ntt_inv_nomod": "pppp" + "iii",
+    "cuhe_ntt_inv_cols": "pppp" + "iii",
+    # rate probes (probes/calib.py)
+    "cuhe_probe_alu": "pp" + "iii",
+    "cuhe_probe_dot_s8": "ppp" + "iiii",
+    "cuhe_probe_dot_bf16": "ppp" + "iiii",
 }
 
 # Launches per kernel wrapper: each wrapper adds one where it launches its
@@ -104,6 +117,15 @@ def build() -> tuple[Path, float]:
         _run([nvcc_proc("-shared", "-o", tmp_so, *objs)])
         os.replace(tmp_so, so)
     return so, time.perf_counter() - t0
+
+
+def sass() -> str:
+    """The machine code of every kernel in the library, as `cuobjdump -sass`
+    (beside nvcc in the toolkit) prints it."""
+    so, _ = build()
+    tool = Path(_nvcc()).with_name("cuobjdump")
+    return subprocess.run([str(tool), "-sass", str(so)], capture_output=True,
+                          text=True, check=True).stdout
 
 
 @functools.lru_cache(maxsize=None)

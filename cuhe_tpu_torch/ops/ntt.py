@@ -59,39 +59,51 @@ def n_inverse(n: int) -> int:
 
 
 @lru_cache(maxsize=None)
-def _plain_tables(n: int, inverse: bool, device: str):
-    """(bit-reversal permutation, twiddle word pair) as tensors on `device`."""
-    bits = n.bit_length() - 1
-    idx = np.arange(n, dtype=np.int64)
-    rev = np.zeros(n, dtype=np.int64)
+def bitrev_index(length: int, device: str) -> torch.Tensor:
+    """The bit-reversal permutation of range(length), length a power of 2."""
+    bits = length.bit_length() - 1
+    idx = np.arange(length, dtype=np.int64)
+    rev = np.zeros(length, dtype=np.int64)
     for b in range(bits):
         rev |= ((idx >> b) & 1) << (bits - 1 - b)
+    return torch.from_numpy(rev).to(device)
+
+
+@lru_cache(maxsize=None)
+def power_words(n: int, inverse: bool, device: str):
+    """w^e (or w^-e), e < n, as an int64 word pair on `device`."""
     t = torch.from_numpy(powers(n, inverse).view(np.int64).copy()).to(device)
-    return (torch.from_numpy(rev).to(device), t & modp.M32,
-            (t >> 32) & modp.M32)
+    return t & modp.M32, (t >> 32) & modp.M32
 
 
-def dft64(lo, hi, n: int, inverse: bool = False):
-    """Length-n DFT of int64 word pairs [B, n] in natural order (radix-2 DIT).
+def dft64(lo, hi, n: int, inverse: bool = False, length: int | None = None):
+    """Length-L DFTs of int64 word pairs [B, L] in natural order (radix-2
+    DIT), L = `length` (default n), with the root w^(n/L) of the length-n
+    root w (w^-(n/L) for `inverse`): the sub-transforms of a four-step
+    split of n take L = n1 or n2.
 
     Returns the pair in natural (std) NTT index order.  Never forms more than
-    a few [B, n] temporaries.
+    a few [B, L] temporaries.
     """
-    rev, tw_lo, tw_hi = _plain_tables(n, inverse, str(lo.device))
+    L = n if length is None else length
+    if L & (L - 1) or not 1 <= L <= n:
+        raise ValueError(f"bad DFT length {L} for n = {n}")
+    rev = bitrev_index(L, str(lo.device))
+    tw_lo, tw_hi = power_words(n, inverse, str(lo.device))
     lo, hi = lo[:, rev], hi[:, rev]
     b = lo.shape[0]
     h = 1
-    while h < n:
+    while h < L:
         idx = torch.arange(h, device=lo.device) * (n // (2 * h))
         w = (tw_lo[idx], tw_hi[idx])
-        x_lo = lo.view(b, n // (2 * h), 2, h)
-        x_hi = hi.view(b, n // (2 * h), 2, h)
+        x_lo = lo.view(b, L // (2 * h), 2, h)
+        x_hi = hi.view(b, L // (2 * h), 2, h)
         u = (x_lo[:, :, 0], x_hi[:, :, 0])
         v = modp.mul_modp64((x_lo[:, :, 1], x_hi[:, :, 1]), w)
         s = modp.add_modp64(u, v)
         d = modp.sub_modp64(u, v)
-        lo = torch.stack((s[0], d[0]), dim=2).reshape(b, n)
-        hi = torch.stack((s[1], d[1]), dim=2).reshape(b, n)
+        lo = torch.stack((s[0], d[0]), dim=2).reshape(b, L)
+        hi = torch.stack((s[1], d[1]), dim=2).reshape(b, L)
         h *= 2
     return lo, hi
 
