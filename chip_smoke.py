@@ -9,7 +9,9 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      operation side of each kernel's bound uses, and the SM clock under load;
   2. hold every kernel bit for bit against its plain PyTorch version on the
      card, and time both (CUDA events, median after warm-up) at the gate
-     step's shapes;
+     step's shapes; the NTTs also at 16k, 32k and 64k, on inputs made of
+     edge values (0, 1, P-1, 2^32-1, 2^32 and whole rows of each), and the
+     inverse at transform counts below, at and past its chunk;
   3. the entry configuration (16k ring, 4 primes, batch 2): the step on the
      card with the kernels equals the step on the CPU with the plain
      versions (which the tests hold against the JAX package);
@@ -86,6 +88,7 @@ def main() -> int:
     from cuhe_tpu_torch.ops import ntt_kernels as nk
     from cuhe_tpu_torch.ops.relin import digit_chunk
     from cuhe_tpu_torch.params import make_params
+    from cuhe_tpu_torch.probes import ablate
     from cuhe_tpu_torch.probes import calib as probe_calib
     from cuhe_tpu_torch.probes import suite as probe_suite
     from cuhe_tpu_torch.probes.timing import (bound, check_bound, cuda_ms,
@@ -114,6 +117,30 @@ def main() -> int:
     def rand_pair(shape):  # values < P
         return rand_u32(shape), rand_u32(shape, 0xFFFFFFFF)
 
+    # edge values of the Goldilocks arithmetic: of a word < P, and of a u32
+    p_mod = (1 << 64) - (1 << 32) + 1
+    edges = (0, 1, p_mod - 1, (1 << 32) - 1, 1 << 32)
+    edges_u32 = (0, 1, (1 << 32) - 1, 1 << 31, (1 << 32) - 2)
+
+    def edge_index(rows, width, k):
+        """[rows, width] indices < k: row r < k all r, the rest random."""
+        idx = torch.randint(0, k, (rows, width), generator=gen, device=dev)
+        idx[:k] = torch.arange(min(rows, k), device=dev)[:, None]
+        return idx
+
+    def edge_u32(shape):
+        """uint32 of `edges_u32`, one constant row of each first."""
+        v = torch.tensor(edges_u32, dtype=torch.int64, device=dev)
+        idx = edge_index(shape[:-1].numel(), shape[-1], len(edges_u32))
+        return modp.to_u32(v[idx]).reshape(shape)
+
+    def edge_pair(shape):
+        """uint32 pair of `edges`, one constant row of each first."""
+        idx = edge_index(shape[:-1].numel(), shape[-1], len(edges))
+        return tuple(modp.to_u32(torch.tensor(
+            [(e >> sh) & 0xFFFFFFFF for e in edges], dtype=torch.int64,
+            device=dev)[idx]).reshape(shape) for sh in (0, 32))
+
     def same(a, b) -> bool:
         if isinstance(a, tuple):
             return all(same(x, y) for x, y in zip(a, b))
@@ -141,6 +168,31 @@ def main() -> int:
         compare("ntt_inv_modcrt", f"n={n} x8",
                 lambda: nk.inv_linear(xp, n, modp.to_u32(pr_)),
                 lambda: nk.inv_linear_plain(xp, n, modp.to_u32(pr_)))
+        # the add, subtract and fold at their edges
+        x = edge_u32(torch.Size((8, n // 2)))
+        compare("ntt_fwd", f"n={n} x8 edge values",
+                lambda: nk.fwd_linear(x, n),
+                lambda: nk.fwd_linear_plain(x, n))
+        xp = edge_pair(torch.Size((8, n)))
+        compare("ntt_inv_modcrt", f"n={n} x8 edge values",
+                lambda: nk.inv_linear(xp, n, modp.to_u32(pr_)),
+                lambda: nk.inv_linear_plain(xp, n, modp.to_u32(pr_)))
+        raw = edge_u32(torch.Size((2, 3, n // 2)))
+        compare("ntt_fwd_digits", f"n={n} 4 digits x2 edge values",
+                lambda: nk.ntt_fwd_digits(raw, n, w=16, j0=1, c=4),
+                lambda: nk.ntt_fwd_digits_plain(raw, n, w=16, j0=1, c=4))
+    # the inverse runs its two passes chunk by chunk: one chunk short, one
+    # chunk, and two chunks and one transform
+    n = 65536
+    chunk = nk.inv_chunk(n)
+    for count in (chunk - 1, chunk, 2 * chunk + 1):
+        xp = rand_pair((count, n))
+        pc = modp.to_u32(pr_.repeat(count // 8 + 1)[:count])
+        compare("ntt_inv_modcrt", f"n={n} x{count} (chunk {chunk})",
+                lambda: nk.inv_linear(xp, n, pc),
+                lambda: nk.inv_linear_plain(xp, n, pc))
+        del xp, pc
+        torch.cuda.empty_cache()
 
     for tag, params, batch in (("entry", port_entry.ENTRY_PARAMS, 2),
                                ("prince_l0", port_entry.PRINCE_PARAMS, 32)):
@@ -198,6 +250,14 @@ def main() -> int:
         compare("relin_mulacc", f"{tag} pnum {pn - 1} of {pn}",
                 lambda: nk.relin_mulacc(dig, ek, j0=j0, pnum=pn - 1),
                 lambda: nk.relin_mulacc_plain(dig, ek, j0=j0, pnum=pn - 1))
+        if tag == "entry":  # the multiply-add at its edges
+            de = edge_pair(dig[0].shape)
+            eke, acce = edge_pair(ek[0].shape), edge_pair(acc[0].shape)
+            compare("relin_mulacc", f"{tag} edge values",
+                    lambda: nk.relin_mulacc(de, eke, j0=j0, pnum=pn,
+                                            acc=acce),
+                    lambda: nk.relin_mulacc_plain(de, eke, j0=j0, pnum=pn,
+                                                  acc=acce))
         span = min(words, (((w * j0) & 31) + w * cc - 1) // 32 + 2)
         prods = ntt_products(n)
         model = {  # (bytes, multiplies by kind) of one call at these shapes
@@ -225,9 +285,14 @@ def main() -> int:
             check_bound(f"{name} {tag}", ms, b_ms)
             results[(name, tag)] = dict(ms=ms, plain_ms=plain_ms,
                                         bound_ms=b_ms, bound_by=b_by)
+            # resident blocks per SM of the NTT kernels' passes
+            occ = {q: ablate.blocks_per_sm(q, n, dev)
+                   for q in {"ntt_fwd": ("cols", "rows"),
+                             "ntt_inv_modcrt": ("inv_rows", "inv_cols"),
+                             "ntt_fwd_digits": ("digits", "rows")}.get(name, ())}
             log(f"[time] {name} {tag}: kernel {ms:.4f} ms, plain "
-                f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}) "
-                f"[{card}]")
+                f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})"
+                + (f", blocks/SM {occ}" if occ else "") + f" [{card}]")
         del x, xp, crt_in, raw, ek, dig, acc
         torch.cuda.empty_cache()
 

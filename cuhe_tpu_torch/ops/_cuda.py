@@ -38,7 +38,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _SIGNATURES = {
     "cuhe_ntt_fwd": "pppp" + "iii",
     "cuhe_ntt_fwd_digits": "pppp" + "iiiiiii",
-    "cuhe_ntt_inv_modcrt": "pppppp" + "iii",
+    "cuhe_ntt_inv_modcrt": "pppppp" + "iiii",
     "cuhe_icrt": "pppppp" + "iiii",
     "cuhe_relin_mulacc": "pppppppp" + "iiiiii",
     "cuhe_calib": "p" + "iii",
@@ -51,6 +51,8 @@ _SIGNATURES = {
     "cuhe_ntt_inv_rows": "pppp" + "iii",
     "cuhe_ntt_inv_nomod": "pppp" + "iii",
     "cuhe_ntt_inv_cols": "pppp" + "iii",
+    # resident blocks per SM of a pass's kernel (no launch)
+    "cuhe_ntt_blocks_per_sm": "iii",
     # rate probes (probes/calib.py)
     "cuhe_probe_alu": "pp" + "iii",
     "cuhe_probe_dot_s8": "ppp" + "iiii",
@@ -163,10 +165,23 @@ def launch(counter: str, fn: str, device: torch.device, *args) -> None:
     LAUNCHES[counter] += 1
 
 
+def query(fn: str, device: torch.device, *args) -> int:
+    """Call C entry point `fn`, which launches nothing, on `device` and
+    return its non-negative result; raise on a negative one (a CUDA error)."""
+    dll = lib()
+    with torch.cuda.device(device):
+        rc = getattr(dll, fn)(*map(_arg, args), ctypes.c_void_p(None))
+    if rc < 0:
+        raise RuntimeError(
+            f"{fn}: CUDA error {-rc}: {dll.cuhe_error_string(-rc).decode()}")
+    return rc
+
+
 def check(t: torch.Tensor, name: str, dtype: torch.dtype, shape=None,
-          device: torch.device | None = None) -> None:
+          device: torch.device | None = None, align: int = 1) -> None:
     """Raise unless `t` is a contiguous CUDA tensor of `dtype` (and `shape`,
-    `device` where given): what the kernels take."""
+    `device` where given) whose data starts at a multiple of `align` bytes:
+    what the kernels take."""
     if not isinstance(t, torch.Tensor):
         raise TypeError(f"{name}: expected a tensor, got {type(t).__name__}")
     if t.device.type != "cuda":
@@ -180,3 +195,6 @@ def check(t: torch.Tensor, name: str, dtype: torch.dtype, shape=None,
                          f"got {tuple(t.shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: must be contiguous")
+    if t.data_ptr() % align:
+        raise ValueError(f"{name}: data must start at a multiple of {align} "
+                         f"bytes")

@@ -173,6 +173,16 @@ def barrett_mu(p: int) -> tuple[int, int]:
     return mu & M32, mu >> 32
 
 
+def barrett_mod_u64(x: int, p: int) -> int:
+    """x mod p for x < 2^64 and 1 < p < 2^32, as the inverse NTT's column
+    pass reduces (csrc/goldilocks.cuh::mod_p32), in Python ints: mu =
+    floor((2^64 - 1) / p), q = umulhi(x, mu) (floor(x / p) or one less), r =
+    x - q p, one conditional subtract."""
+    mu = ((1 << 64) - 1) // p
+    r = x - ((x * mu) >> 64) * p
+    return r - p if r >= p else r
+
+
 def mod_u32(x, p):
     """x mod p for a uint32 pair x < 2^64 and uint32 p (broadcastable)."""
     return to_u32(mod_p64(_w(x), to_i64(p)))

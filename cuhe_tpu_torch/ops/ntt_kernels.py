@@ -44,6 +44,33 @@ def _u32_contiguous(t: torch.Tensor) -> torch.Tensor:
     return t.view(torch.int32).contiguous().view(torch.uint32)
 
 
+# The shift s with 2^s = w^(n/64) (w^-(n/64) for the inverse) that the
+# passes of csrc/ntt.cu are compiled for (kShift64): the root of their
+# radix-16 DFTs.
+KERNEL_SHIFT64 = {False: 3, True: 189}
+
+
+def check_root_shift(n: int, inverse: bool) -> None:
+    """Raise unless the shift of w^(n/64) (or its inverse) derived on the
+    host (`ntt.root_shift`) is the one the kernels are compiled for."""
+    s = ntt.root_shift(n, 64, inverse)
+    if s != KERNEL_SHIFT64[inverse]:
+        raise ValueError(f"n = {n}: the root w^(n/64) is 2^{s}, the kernels "
+                         f"are compiled for 2^{KERNEL_SHIFT64[inverse]}")
+
+
+# The inverse runs its two passes chunk by chunk, so that the u64 scratch
+# between them holds at most INV_SCRATCH_BYTES.  The forward transforms run
+# each pass over all their transforms: chunks whose intermediate stays in
+# L2 measured slower on an H100 (PERF.md, section 6).
+INV_SCRATCH_BYTES = 256 << 20
+
+
+def inv_chunk(n: int) -> int:
+    """Transforms per chunk of `inv_linear` at length n."""
+    return max(1, INV_SCRATCH_BYTES // (8 * n))
+
+
 def _fwd64(x, n: int):
     """Plain forward NTT of int64 coefficients [B, n/2] -> mat int64 pair."""
     lo = torch.cat([x, torch.zeros_like(x)], dim=-1)
@@ -68,6 +95,7 @@ def fwd_linear(x: torch.Tensor, n: int):
     uint32 pair [.., n] in mat-linear order."""
     if _is_cpu(x):
         return fwd_linear_plain(x, n)
+    check_root_shift(n, False)
     n1, n2 = ntt.factors(n)
     _cuda.check(x, "x", torch.uint32)
     if x.shape[-1] != n // 2:
@@ -105,23 +133,28 @@ def inv_linear(x_pair, n: int, p: torch.Tensor) -> torch.Tensor:
     transform reduced mod its prime: p is uint32 broadcastable against the
     leading dims (e.g. [pnum] for [batch, pnum, n]).  Returns uint32 [.., n]
     in natural coefficient order."""
-    lo, hi = x_pair
-    if _is_cpu(lo):
+    if _is_cpu(x_pair[0]):
         return inv_linear_plain(x_pair, n, p)
+    check_root_shift(n, True)
+    lo, hi = x_pair
     n1, n2 = ntt.factors(n)
     lead = tuple(lo.shape[:-1])
-    _cuda.check(lo, "x_lo", torch.uint32, lead + (n,))
-    _cuda.check(hi, "x_hi", torch.uint32, lead + (n,), lo.device)
+    # the row pass loads 16 bytes at a time
+    _cuda.check(lo, "x_lo", torch.uint32, lead + (n,), align=16)
+    _cuda.check(hi, "x_hi", torch.uint32, lead + (n,), lo.device, align=16)
     _cuda.check(p, "p", torch.uint32, device=lo.device)
     p_b = _u32_contiguous(torch.broadcast_to(p, lead))
     count = prod(lead)
     out = torch.empty(lead + (n,), dtype=torch.uint32, device=lo.device)
     if count:
-        scratch = torch.empty((count, n), dtype=torch.int64, device=lo.device)
+        # the row pass's output, one chunk at a time
+        chunk = inv_chunk(n)
+        scratch = torch.empty((min(count, chunk), n), dtype=torch.int64,
+                              device=lo.device)
         _cuda.launch("ntt_inv_modcrt", "cuhe_ntt_inv_modcrt", lo.device, lo,
                      hi, scratch, out, p_b,
                      _device_powers(n, True, str(lo.device)), count,
-                     _log2(n1), _log2(n2))
+                     _log2(n1), _log2(n2), chunk)
     return out
 
 
@@ -146,6 +179,7 @@ def ntt_fwd_digits(raw: torch.Tensor, n: int, *, w: int, j0: int, c: int):
     Returns a uint32 pair [c, .., n] in mat-linear order."""
     if _is_cpu(raw):
         return ntt_fwd_digits_plain(raw, n, w=w, j0=j0, c=c)
+    check_root_shift(n, False)
     n1, n2 = ntt.factors(n)
     _cuda.check(raw, "raw", torch.uint32)
     if raw.dim() < 2 or raw.shape[-1] != n // 2:

@@ -54,7 +54,7 @@ import torch
 
 from ..ops import _cuda, modp, ntt
 from ..ops import ntt_kernels as nk
-from .timing import ntt_products, twiddle_products
+from .timing import ntt_products, radix16_products, twiddle_products
 
 # the probes' shapes: (n, transforms), tpu_probe_inv_ablate.py:168-170 and
 # tpu_probe_fwd32_ablate.py:398; and PRINCE level 0's, 32 ciphertexts x 25
@@ -228,6 +228,7 @@ def inv_cols_plain(a, n, p):
 # ---------------------------------------------------------------------------
 
 def _cols(name: str, x: torch.Tensor, n: int):
+    nk.check_root_shift(n, False)
     n1, n2 = ntt.factors(n)
     _cuda.check(x, "x", torch.uint32)
     if x.shape[-1] != n // 2:
@@ -244,10 +245,11 @@ def _cols(name: str, x: torch.Tensor, n: int):
 
 def _check_pair(pair, n: int):
     lo, hi = pair
-    _cuda.check(lo, "x_lo", torch.uint32)
+    # the row pass loads 16 bytes at a time
+    _cuda.check(lo, "x_lo", torch.uint32, align=16)
     if lo.shape[-1] != n:
         raise ValueError(f"x_lo: last dim {lo.shape[-1]} != n = {n}")
-    _cuda.check(hi, "x_hi", torch.uint32, lo.shape, lo.device)
+    _cuda.check(hi, "x_hi", torch.uint32, lo.shape, lo.device, align=16)
     return tuple(lo.shape[:-1])
 
 
@@ -277,6 +279,7 @@ def rows(pair, n: int):
     """The forward row pass, out of place (pair [.., n] -> pair [.., n])."""
     if nk._is_cpu(pair[0]):
         return rows_plain(pair, n)
+    nk.check_root_shift(n, False)
     n1, n2 = ntt.factors(n)
     lead = _check_pair(pair, n)
     lo = torch.empty(lead + (n,), dtype=torch.uint32, device=pair[0].device)
@@ -290,6 +293,7 @@ def rows(pair, n: int):
 
 
 def _inv_rows(name: str, pair, n: int):
+    nk.check_root_shift(n, True)
     n1, n2 = ntt.factors(n)
     lead = _check_pair(pair, n)
     out = torch.empty(lead + (n,), dtype=torch.int64, device=pair[0].device)
@@ -317,6 +321,7 @@ def inv_nomod(a: torch.Tensor, n: int):
     [.., n] -> pair [.., n] in natural order)."""
     if nk._is_cpu(a):
         return inv_nomod_plain(a, n)
+    nk.check_root_shift(n, True)
     n1, n2 = ntt.factors(n)
     lead = _check_u64(a, n)
     lo = torch.empty(lead + (n,), dtype=torch.uint32, device=a.device)
@@ -334,6 +339,7 @@ def inv_cols(a: torch.Tensor, n: int, p: torch.Tensor) -> torch.Tensor:
     [.., n] in natural order)."""
     if nk._is_cpu(a):
         return inv_cols_plain(a, n, p)
+    nk.check_root_shift(n, True)
     n1, n2 = ntt.factors(n)
     lead = _check_u64(a, n)
     _cuda.check(p, "p", torch.uint32, device=a.device)
@@ -418,3 +424,36 @@ def pass_model(passes, n: int, count: int):
     nbytes += 4 * (passes[-1] == "inv_cols")
     total = sum(products[q] for q in passes)
     return count * nbytes, ({"mul64": count * total} if total else {})
+
+
+def kernel_products(passes, n: int) -> int:
+    """Generic 64x64->128 products per transform that the kernels of
+    `passes` do (shifts by powers of two not counted): the inner twiddles of
+    the radix-16 split that are not shifts (`radix16_products`), and the
+    four-step twiddle of `cols` and `inv_rows`: one product per coefficient,
+    and M - 1 more per M coefficients for its recurrence (M = n1/16 in
+    `cols`, n2/16 in `inv_rows`).  The inverse column pass's n^-1 is a
+    shift."""
+    passes = [q for name in passes
+              for q in TRANSFORM_PASSES.get(name, (name,))]
+    n1, n2 = ntt.factors(n)
+    col, row = n2 * radix16_products(n1), n1 * radix16_products(n2)
+    col_tw = n + n // (n1 // 16) * (n1 // 16 - 1)
+    row_tw = n + n // (n2 // 16) * (n2 // 16 - 1)
+    products = {"cols_io": 0, "cols_notw": col, "cols": col + col_tw,
+                "rows": row, "rows_io": 0, "inv_rows": row + row_tw,
+                "inv_nomod": col, "inv_cols": col}
+    return sum(products[q] for q in passes)
+
+
+# id of each pass's kernel for `blocks_per_sm` (csrc/ntt.cu,
+# cuhe_ntt_blocks_per_sm); "digits" is the digit NTT's column pass (B6)
+_KERNEL_IDS = {**{name: i for i, name in enumerate(PASSES)}, "digits": 8}
+
+
+def blocks_per_sm(name: str, n: int, device) -> int:
+    """Resident blocks per SM of the kernel that pass `name` launches at
+    length n on `device` (cudaOccupancyMaxActiveBlocksPerMultiprocessor)."""
+    n1, n2 = ntt.factors(n)
+    return _cuda.query("cuhe_ntt_blocks_per_sm", torch.device(device),
+                       _KERNEL_IDS[name], _log2(n1), _log2(n2))

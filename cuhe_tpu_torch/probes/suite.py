@@ -160,7 +160,7 @@ def run(device="cuda", log=print, rates: dict | None = None,
             f"({r['bound_by']}) [{card}]")
 
     def timed(probe, kernel, shape, fn, plain, nbytes, ops, count,
-              line=False):
+              line=False, passes=None, n=None):
         ms, got = cuda_ms_out(fn, REPS)
         plain_ms, want = cuda_ms_out(plain, PLAIN_REPS)
         _same(f"{probe} {shape}", got, want)
@@ -170,9 +170,18 @@ def run(device="cuda", log=print, rates: dict | None = None,
                        plain_ms=plain_ms, library_ms=None, bound_ms=b_ms,
                        bound_by=b_by, max_abs_err=0.0,
                        us_per_transform=ms * 1e3 / count), line)
+        kern = ""
+        if passes:  # what the NTT kernels do and how many blocks fit an SM
+            rec["products_per_coef"] = ablate.kernel_products(passes, n) / n
+            names = [q for name in passes
+                     for q in ablate.TRANSFORM_PASSES.get(name, (name,))]
+            rec["blocks_per_sm"] = {q: ablate.blocks_per_sm(q, n, dev)
+                                    for q in names}
+            kern = (f", {rec['products_per_coef']:.4f} generic products/coef,"
+                    f" blocks/SM {rec['blocks_per_sm']}")
         log(f"[probe] {probe} {shape}: {ms:.4f} ms = "
             f"{rec['us_per_transform']:.4f} us/transform, plain "
-            f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}), "
+            f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}){kern}, "
             f"bit-exact [{card}]")
 
     for n, batch in ablate.INV_PROBE_SHAPES:
@@ -181,14 +190,16 @@ def run(device="cuda", log=print, rates: dict | None = None,
             timed(f"P3 {variant}", "+".join(passes), f"n={n} B={batch}",
                   lambda: ablate.inv_ablate(variant, x, n),
                   lambda: _plain_chain(passes, x, n),
-                  *ablate.pass_model(passes, n, batch), batch)
+                  *ablate.pass_model(passes, n, batch), batch,
+                  passes=passes, n=n)
     for n, batch in ablate.FWD_PROBE_SHAPES:
         x = ablate.fwd_probe_input(batch, n, dev)
         for variant, passes in ablate.FWD_VARIANTS.items():
             timed(f"P4 {variant}", "+".join(passes), f"n={n} B={batch}",
                   lambda: ablate.fwd_ablate(variant, x, n),
                   lambda: _plain_chain(passes, x, n),
-                  *ablate.pass_model(passes, n, batch), batch)
+                  *ablate.pass_model(passes, n, batch), batch,
+                  passes=passes, n=n)
 
     n, count = ablate.PRINCE_SHAPE
     gen = torch.Generator(device=dev)
@@ -198,18 +209,21 @@ def run(device="cuda", log=print, rates: dict | None = None,
         timed(f"pass {name}", ablate.COUNTERS[name], f"prince_l0 {count}x{n}",
               lambda: getattr(ablate, name)(*args),
               lambda: getattr(ablate, f"{name}_plain")(*args),
-              *ablate.pass_model((name,), n, count), count, line=True)
+              *ablate.pass_model((name,), n, count), count, line=True,
+              passes=(name,), n=n)
         del args
     x = _rand_u32(gen, (count, n // 2), dev)
     xp = _rand_pair(gen, (count, n), dev)
     p = _pass_args("inv_cols", n, count, gen, dev)[2]
     timed("B1 ntt_fwd", "ntt_fwd", f"prince_l0 {count}x{n}",
           lambda: nk.fwd_linear(x, n), lambda: nk.fwd_linear_plain(x, n),
-          *ablate.pass_model(("fwd_linear",), n, count), count)
+          *ablate.pass_model(("fwd_linear",), n, count), count,
+          passes=("fwd_linear",), n=n)
     timed("B2 ntt_inv_modcrt", "ntt_inv_modcrt", f"prince_l0 {count}x{n}",
           lambda: nk.inv_linear(xp, n, p),
           lambda: nk.inv_linear_plain(xp, n, p),
-          *ablate.pass_model(("inv_linear",), n, count), count)
+          *ablate.pass_model(("inv_linear",), n, count), count,
+          passes=("inv_linear",), n=n)
     torch.cuda.empty_cache()
     return records
 

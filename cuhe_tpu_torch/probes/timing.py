@@ -108,3 +108,12 @@ def twiddle_products(n: int, n1: int, n2: int) -> int:
     root of unity, a power of two, costs a shift)."""
     k1, j2 = np.arange(n1)[:, None], np.arange(n2)[None, :]
     return int(np.count_nonzero(k1 * j2 % (n // 64)))
+
+
+def radix16_products(length: int) -> int:
+    """Generic products of one length-L DFT as csrc/ntt.cu's passes split it,
+    16 x L/16: the inner twiddles w_L^(a kb), a < L/16, kb < 16, whose
+    exponent is not a multiple of L/64 (those are shifts); the length-16 and
+    length-L/16 DFTs themselves run on shifts only."""
+    a, kb = np.arange(length // 16)[:, None], np.arange(16)[None, :]
+    return int(np.count_nonzero(a * kb % (length // 64)))
