@@ -4,20 +4,27 @@
     python3 chip_smoke.py
 
 Phases (any failure ends the run with a non-zero exit and no result line):
-  1. build the CUDA kernels of cuhe_tpu_torch/csrc with nvcc (sm_90a), and
-     measure the card's integer multiply rates (csrc/calib.cu), which the
-     operation side of each kernel's bound uses, and the SM clock under load;
+  1. build the CUDA kernels of cuhe_tpu_torch/csrc with nvcc (sm_90a), read
+     the SASS instructions per product of the multiply-accumulate's digit
+     loop and per prime of the ICRT's loop, and measure the card's integer
+     multiply rates (csrc/calib.cu), which the operation side of each
+     kernel's bound uses, and the SM clock under load;
   2. hold every kernel bit for bit against its plain PyTorch version on the
      card, and time both (CUDA events, median after warm-up) at the gate
-     step's shapes; the NTTs also at 16k, 32k and 64k, on inputs made of
-     edge values (0, 1, P-1, 2^32-1, 2^32 and whole rows of each), and the
-     inverse at transform counts below, at and past its chunk;
+     step's shapes, with each kernel's resident blocks per SM; the NTTs also
+     at 16k, 32k and 64k, on inputs made of edge values (0, 1, P-1, 2^32-1,
+     2^32 and whole rows of each), and the inverse at transform counts
+     below, at and past its chunk; the ICRT at every word count 1..32 and on
+     edge residues; the multiply-accumulate at a later digit chunk with a
+     partial, at fewer planes than the keys hold, on edge values and with
+     every operand P-1, and all digits in launches of 8 against one launch;
   3. the entry configuration (16k ring, 4 primes, batch 2): the step on the
      card with the kernels equals the step on the CPU with the plain
      versions (which the tests hold against the JAX package);
   4. PRINCE level 0 (n = 32768, 25 primes, 40 digits, batch 32): the first
      two ciphertexts against the plain path on the card, then the launch
-     counts of one batch-32 step (the main path), its time and peak memory;
+     counts of one batch-32 step (the main path), its time and peak memory,
+     and the device time of each kernel in it (torch.profiler);
   5. the probes (cuhe_tpu_torch/probes, `python3 -m cuhe_tpu_torch.probes`):
      every probe kernel and NTT pass against its plain version on the card,
      then the probe run, with its own launch counts: tensor-core dots (P1),
@@ -63,15 +70,18 @@ def profile_step(run, step_ms: float, card: str) -> None:
     if busy <= 0:
         log("[profile] the profiler recorded no device time: not measured")
         return
-    ours = sum(ms for k, ms, _ in rows if any(
-        s in k for s in ("fwd_cols", "ntt_rows", "inv_cols", "icrt_kernel",
-                         "relin_mulacc_kernel")))
+    port = [r for r in rows if any(
+        s in r[0] for s in ("fwd_cols", "ntt_rows", "inv_cols", "icrt_kernel",
+                            "relin_mulacc_kernel"))]
+    ours = sum(ms for _, ms, _ in port)
     log(f"[profile] one batch-32 step: device busy {busy:.3f} ms "
         f"(port kernels {ours:.3f} ms, PyTorch kernels {busy - ours:.3f} ms), "
         f"{len(rows)} kernel names, idle share "
         f"{max(0.0, 1 - busy / step_ms):.3f} of {step_ms:.3f} ms [{card}]")
     for k, ms, cnt in rows[:12]:
         log(f"[profile]   {ms:9.3f} ms  x{cnt:<5d} {k[:90]}")
+    for k, ms, cnt in port:  # device time of each port kernel in the step
+        log(f"[profile] port {ms:9.3f} ms  x{cnt:<5d} {k[:90]}")
 
 
 def main() -> int:
@@ -103,6 +113,19 @@ def main() -> int:
     so, build_s = _cuda.build()
     _cuda.lib()
     log(f"[build] {so.name} in {build_s:.1f} s")
+    # instructions of the multiply-accumulate's digit loop (unrolled twice)
+    # per product, and of the ICRT's prime loop per prime, at PRINCE level
+    # 0's 20 words: each the kernel's loop with the most wide multiplies
+    sass = _cuda.sass()
+    loop = probe_calib.sass_loop(sass, "relin_mulacc_kernel", "IMAD.WIDE")
+    per = sum(loop.values()) / (2 * nk.RELIN_RB * nk.RELIN_RP)
+    log(f"[sass] relin_mulacc digit loop: {sum(loop.values())} instructions "
+        f"for 2 x {nk.RELIN_RB} x {nk.RELIN_RP} products, {per:.2f} per "
+        f"product; {dict(loop.most_common(8))}")
+    loop = probe_calib.sass_loop(sass, "icrt_kernelILi20E", "IMAD.WIDE")
+    log(f"[sass] icrt (20 words) prime loop: {sum(loop.values())} "
+        f"instructions per prime; {dict(loop.most_common(8))}")
+    del sass
     clock = probe_calib.sample_sm_clock(dev)
     rates = probe_calib.mul_rates(dev)
     log(f"[calib] {probe_calib.rates_line(rates, clock)} [{card}]")
@@ -194,6 +217,39 @@ def main() -> int:
         del xp, pc
         torch.cuda.empty_cache()
 
+    # the ICRT at every word count it takes, 1..32 (each instantiated width
+    # and its zero padding): M the product of `words` primes just below 2^32
+    chain, v = [], 1 << 32
+    while len(chain) < crt.MAX_WORDS:
+        v = hm.prev_prime(v - 1)
+        chain.append(v)
+    for words in range(1, crt.MAX_WORDS + 1):
+        ps, m = chain[:words], 1
+        for v in ps:
+            m *= v
+        mi = [m // v for v in ps]
+
+        def u32(vals):
+            return modp.to_u32(torch.tensor(vals, dtype=torch.int64,
+                                            device=dev))
+
+        args = (u32(ps), u32([hm.modinv(a % v, v) for a, v in zip(mi, ps)]),
+                u32([hm.ints_to_words([a], words)[:, 0].tolist()
+                     for a in mi]),
+                u32(hm.ints_to_words([m], words)[:, 0].tolist()))
+        pt = torch.tensor(ps, dtype=torch.int64, device=dev)
+        ce = torch.remainder(torch.randint(0, 1 << 32, (2, words, 300),
+                                           generator=gen, device=dev,
+                                           dtype=torch.int64), pt[:, None])
+        ce[0, :, :2] = pt[:, None] - 1
+        ce[0, :, 2:4] = 0
+        ce = modp.to_u32(ce)
+        got, want = crt.icrt_to_raw(ce, *args), crt.icrt_to_raw_plain(ce, *args)
+        torch.cuda.synchronize()
+        if not same(got, want):
+            raise AssertionError(f"icrt {words} words: kernel != plain")
+    log(f"[kernel] icrt at 1..{crt.MAX_WORDS} words: bit-exact")
+
     for tag, params, batch in (("entry", port_entry.ENTRY_PARAMS, 2),
                                ("prince_l0", port_entry.PRINCE_PARAMS, 32)):
         pr = make_params(*params)
@@ -217,12 +273,8 @@ def main() -> int:
                           device=dev, dtype=torch.int64), primes[:, None]))
         raw = rand_u32((batch, words, n // 2))
         ek = rand_pair((knum, pn, n))
-        # the second digit chunk where there is one (a nonzero bit offset
-        # into the words, and a previous chunk's partial to add)
-        j0 = c if knum > c else 0
-        cc = min(c, knum - j0)
-        dig = nk.ntt_fwd_digits(raw, n, w=w, j0=j0, c=cc)
-        acc = rand_pair((batch, pn, n))
+        # the step's digit chunk (all digits at both configurations)
+        dig = nk.ntt_fwd_digits(raw, n, w=w, j0=0, c=c)
         cases = {
             "ntt_fwd": (lambda: nk.fwd_linear(x, n),
                         lambda: nk.fwd_linear_plain(x, n)),
@@ -233,33 +285,89 @@ def main() -> int:
                      lambda: crt.icrt_to_raw_plain(crt_in, p_u32, bi_t,
                                                    mi_words, m_words)),
             "ntt_fwd_digits": (
-                lambda: nk.ntt_fwd_digits(raw, n, w=w, j0=j0, c=cc),
-                lambda: nk.ntt_fwd_digits_plain(raw, n, w=w, j0=j0, c=cc)),
+                lambda: nk.ntt_fwd_digits(raw, n, w=w, j0=0, c=c),
+                lambda: nk.ntt_fwd_digits_plain(raw, n, w=w, j0=0, c=c)),
             "relin_mulacc": (
-                lambda: nk.relin_mulacc(dig, ek, j0=j0, pnum=pn, acc=acc),
-                lambda: nk.relin_mulacc_plain(dig, ek, j0=j0, pnum=pn,
-                                              acc=acc)),
+                lambda: nk.relin_mulacc(dig, ek, j0=0, pnum=pn),
+                lambda: nk.relin_mulacc_plain(dig, ek, j0=0, pnum=pn)),
         }
-        # the last digit chunk, whose window runs past the top word
-        last = (knum - 1) // c * c
-        compare("ntt_fwd_digits", f"{tag} last chunk",
+        # a later chunk, as a batch or level whose digits do not fit one
+        # chunk runs it: a nonzero bit offset into the words, and a previous
+        # chunk's partial to add (8 digits, the earlier chunk size at
+        # prince_l0)
+        j1 = min(8, knum // 2)
+        c1 = min(8, knum - j1)
+        dig1 = nk.ntt_fwd_digits(raw, n, w=w, j0=j1, c=c1)
+        acc = rand_pair((batch, pn, n))
+        compare("ntt_fwd_digits", f"{tag} digits {j1}..{j1 + c1 - 1}",
+                lambda: dig1,
+                lambda: nk.ntt_fwd_digits_plain(raw, n, w=w, j0=j1, c=c1))
+        later = (lambda: nk.relin_mulacc(dig1, ek, j0=j1, pnum=pn, acc=acc),
+                 lambda: nk.relin_mulacc_plain(dig1, ek, j0=j1, pnum=pn,
+                                               acc=acc))
+        compare("relin_mulacc", f"{tag} digits {j1}..{j1 + c1 - 1} + acc",
+                *later)
+        # the last digit chunk of 8, whose window runs past the top word
+        last = (knum - 1) // 8 * 8
+        compare("ntt_fwd_digits", f"{tag} digits {last}..{knum - 1}",
                 lambda: nk.ntt_fwd_digits(raw, n, w=w, j0=last, c=knum - last),
                 lambda: nk.ntt_fwd_digits_plain(raw, n, w=w, j0=last,
                                                 c=knum - last))
         # fewer planes than the eval keys hold (a level above 0)
         compare("relin_mulacc", f"{tag} pnum {pn - 1} of {pn}",
-                lambda: nk.relin_mulacc(dig, ek, j0=j0, pnum=pn - 1),
-                lambda: nk.relin_mulacc_plain(dig, ek, j0=j0, pnum=pn - 1))
-        if tag == "entry":  # the multiply-add at its edges
-            de = edge_pair(dig[0].shape)
-            eke, acce = edge_pair(ek[0].shape), edge_pair(acc[0].shape)
-            compare("relin_mulacc", f"{tag} edge values",
-                    lambda: nk.relin_mulacc(de, eke, j0=j0, pnum=pn,
-                                            acc=acce),
-                    lambda: nk.relin_mulacc_plain(de, eke, j0=j0, pnum=pn,
-                                                  acc=acce))
-        span = min(words, (((w * j0) & 31) + w * cc - 1) // 32 + 2)
+                lambda: nk.relin_mulacc(dig1, ek, j0=j1, pnum=pn - 1),
+                lambda: nk.relin_mulacc_plain(dig1, ek, j0=j1, pnum=pn - 1))
+        # the multiply-add at its edges: a mix of edge values with a
+        # partial, and the largest accumulator (every operand P - 1, over
+        # all the step's digits)
+        de = edge_pair(dig1[0].shape)
+        eke, acce = edge_pair(ek[0].shape), edge_pair(acc[0].shape)
+        compare("relin_mulacc", f"{tag} edge values",
+                lambda: nk.relin_mulacc(de, eke, j0=j1, pnum=pn, acc=acce),
+                lambda: nk.relin_mulacc_plain(de, eke, j0=j1, pnum=pn,
+                                              acc=acce))
+        del de, eke, acce
+        top, ektop, acctop = (
+            tuple(modp.to_u32(torch.full(t.shape, v, dtype=torch.int64,
+                                         device=dev)) for v in (0, 0xFFFFFFFF))
+            for t in (dig[0], ek[0], acc[0]))  # P - 1 = (0, 2^32 - 1)
+        compare("relin_mulacc", f"{tag} every operand P-1, {c} digits + acc",
+                lambda: nk.relin_mulacc(top, ektop, j0=0, pnum=pn,
+                                        acc=acctop),
+                lambda: nk.relin_mulacc_plain(top, ektop, j0=0, pnum=pn,
+                                              acc=acctop))
+        del top, ektop, acctop
+        # the ICRT at its edges, on a batch of 3 and 1000 columns (no
+        # multiple of the 256-column block): residues of 0, 1, M - 1 (every
+        # residue p_i - 1), M // 2, and of integers next to multiples of
+        # M / p_i, then random residues
+        special = [0, 1, q - 1, q // 2]
+        for i in range(pn):
+            special += [j * mi[i] + d for j in (1, pr.crt_primes[i] - 1)
+                        for d in (-1, 0, 1)]
+        ce = torch.remainder(torch.randint(0, 1 << 32, (3, pn, 1000),
+                                           generator=gen, device=dev,
+                                           dtype=torch.int64),
+                             primes[:, None])
+        ce[0, :, :len(special)] = torch.tensor(
+            [[v % p for v in special] for p in pr.crt_primes[:pn]],
+            device=dev)
+        ce[1] = primes[:, None] - 1
+        ce = modp.to_u32(ce)
+        compare("icrt", f"{tag} edge values, 3 x 1000",
+                lambda: crt.icrt_to_raw(ce, p_u32, bi_t, mi_words, m_words),
+                lambda: crt.icrt_to_raw_plain(ce, p_u32, bi_t, mi_words,
+                                              m_words))
+        del ce
+        span = min(words, (w * c - 1) // 32 + 2)
         prods = ntt_products(n)
+
+        def mulacc_model(cc, with_acc):
+            """(bytes, multiplies) of relin_mulacc over cc digits: the
+            previous partial is read only where one is given"""
+            return ((cc * batch + cc * pn + (2 if with_acc else 1)
+                     * batch * pn) * n * 8, {"mul64": cc * batch * pn * n})
+
         model = {  # (bytes, multiplies by kind) of one call at these shapes
             "ntt_fwd": (batch * pn * (n // 2 * 4 + n * 8),
                         {"mul64": batch * pn * prods}),
@@ -271,10 +379,20 @@ def main() -> int:
             "icrt": (batch * (pn + words) * (n // 2) * 4,
                      {"mad32": batch * (n // 2) * sum(
                          1 + (v.bit_length() + 31) // 32 for v in mi)}),
-            "ntt_fwd_digits": (batch * span * (n // 2) * 4 + cc * batch * n * 8,
-                               {"mul64": cc * batch * prods}),
-            "relin_mulacc": ((cc * batch + cc * pn + 2 * batch * pn) * n * 8,
-                             {"mul64": cc * batch * pn * n}),
+            "ntt_fwd_digits": (batch * span * (n // 2) * 4 + c * batch * n * 8,
+                               {"mul64": c * batch * prods}),
+            "relin_mulacc": mulacc_model(c, False),
+        }
+        # resident blocks per SM of each kernel's launches at these shapes
+        occupancy = {
+            "ntt_fwd": lambda: {q: ablate.blocks_per_sm(q, n, dev)
+                                for q in ("cols", "rows")},
+            "ntt_inv_modcrt": lambda: {q: ablate.blocks_per_sm(q, n, dev)
+                                       for q in ("inv_rows", "inv_cols")},
+            "ntt_fwd_digits": lambda: {q: ablate.blocks_per_sm(q, n, dev)
+                                       for q in ("digits", "rows")},
+            "icrt": lambda: crt.icrt_blocks_per_sm(pn, words, dev),
+            "relin_mulacc": lambda: nk.relin_blocks_per_sm(batch, pn, dev),
         }
         reps_plain = 3 if tag == "prince_l0" else 5
         for name, (kern, plain) in cases.items():
@@ -285,15 +403,39 @@ def main() -> int:
             check_bound(f"{name} {tag}", ms, b_ms)
             results[(name, tag)] = dict(ms=ms, plain_ms=plain_ms,
                                         bound_ms=b_ms, bound_by=b_by)
-            # resident blocks per SM of the NTT kernels' passes
-            occ = {q: ablate.blocks_per_sm(q, n, dev)
-                   for q in {"ntt_fwd": ("cols", "rows"),
-                             "ntt_inv_modcrt": ("inv_rows", "inv_cols"),
-                             "ntt_fwd_digits": ("digits", "rows")}.get(name, ())}
             log(f"[time] {name} {tag}: kernel {ms:.4f} ms, plain "
-                f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})"
-                + (f", blocks/SM {occ}" if occ else "") + f" [{card}]")
-        del x, xp, crt_in, raw, ek, dig, acc
+                f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}), "
+                f"blocks/SM {occupancy[name]()} [{card}]")
+        # the later chunk's launch; and all the digits in launches of 8,
+        # as the step ran them with a 64 MiB digit chunk, against one
+        # launch over all of them
+        ms = cuda_ms(later[0], 20)
+        b_ms, b_by = bound(*mulacc_model(c1, True), rates)
+        check_bound(f"relin_mulacc {tag} later chunk", ms, b_ms)
+        log(f"[time] relin_mulacc {tag} digits {j1}..{j1 + c1 - 1} + acc: "
+            f"kernel {ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}) [{card}]")
+        if knum > 8:
+            chunks = [(j, min(8, knum - j)) for j in range(0, knum, 8)]
+            digs = [nk.ntt_fwd_digits(raw, n, w=w, j0=j, c=cc)
+                    for j, cc in chunks]
+            dig_all = nk.ntt_fwd_digits(raw, n, w=w, j0=0, c=knum)
+
+            def chunked():
+                a = None
+                for (j, _), d in zip(chunks, digs):
+                    a = nk.relin_mulacc(d, ek, j0=j, pnum=pn, acc=a)
+                return a
+
+            def whole():
+                return nk.relin_mulacc(dig_all, ek, j0=0, pnum=pn)
+
+            compare("relin_mulacc", f"{tag} {len(chunks)} launches of 8 "
+                    f"digits, against one of {knum}", chunked, whole)
+            ms, ms1 = cuda_ms(chunked, 20), cuda_ms(whole, 20)
+            log(f"[time] relin_mulacc {tag} {knum} digits: {ms:.4f} ms in "
+                f"{len(chunks)} launches, {ms1:.4f} ms in one [{card}]")
+            del digs, dig_all
+        del x, xp, crt_in, raw, ek, dig, dig1, acc
         torch.cuda.empty_cache()
 
     # ---- 3. entry configuration: card == CPU ------------------------------

@@ -88,6 +88,65 @@ __device__ __forceinline__ uint64_t gl_mul(uint64_t a, uint64_t b) {
   return gl_reduce128(a * b, __umul64hi(a, b));
 }
 
+// Lazy accumulation (csrc/relin.cu): a sum of products kept unreduced and
+// folded once.  Each product of x, y < 2^64 splits into 32 x 32-bit partial
+// products, x0 y0 + x1 y1 2^64 (even) and (x0 y1 + x1 y0) 2^32 (odd), and
+// each part has its own accumulator of 64-bit words, so that every partial
+// product is one wide multiply (IMAD.WIDE.U32) added to an aligned pair of
+// registers, with no moves between two alignments of one accumulator.
+// After c products on an initial value below 2^64 the even words e0..e4
+// hold below 2^64 + c 2^128 and the odd words o0..o2 (at 2^32) below c 2^65:
+// exact for fewer than 2^31 products, where o2 < 2c fits its word and the
+// value stays below 2^160.
+struct gl_acc {
+  uint64_t e01, e23, o01;  // words 0-1 and 2-3 of the even part, 0-1 of odd
+  uint32_t e4, o2;
+};
+
+__device__ __forceinline__ gl_acc gl_acc_init(uint64_t v) {
+  return gl_acc{v, 0, 0, 0, 0};
+}
+
+// a += x * y: four wide multiplies, three 64-bit adds, three carries caught
+// (these instruction forms measured fastest on an H100; PERF.md,
+// section 6).
+__device__ __forceinline__ void gl_acc_mac(gl_acc& a, uint64_t x,
+                                           uint64_t y) {
+  asm("{\n\t.reg .u64 t0, t1;\n\t"
+      "mul.wide.u32 t0, %5, %7;\n\t"
+      "mul.wide.u32 t1, %6, %8;\n\t"
+      "add.cc.u64 %0, %0, t0;\n\t"
+      "addc.cc.u64 %1, %1, t1;\n\t"
+      "addc.u32 %3, %3, 0;\n\t"
+      "mad.wide.u32 t0, %5, %8, 0;\n\t"
+      "add.cc.u64 %2, %2, t0;\n\t"
+      "addc.u32 %4, %4, 0;\n\t"
+      "mad.wide.u32 t1, %6, %7, 0;\n\t"
+      "add.cc.u64 %2, %2, t1;\n\t"
+      "addc.u32 %4, %4, 0;\n\t}"
+      : "+l"(a.e01), "+l"(a.e23), "+l"(a.o01), "+r"(a.e4), "+r"(a.o2)
+      : "r"((uint32_t)x), "r"((uint32_t)(x >> 32)), "r"((uint32_t)y),
+        "r"((uint32_t)(y >> 32)));
+}
+
+// The accumulated value mod P: the odd part added at word 1, giving five
+// words r0..r4 below 2^160, then r0 + r1 2^32 + r2 2^64 + r3 2^96 folded by
+// gl_reduce128 and r4 2^128 = -r4 2^32 (mod P), where r4 2^32 < P.
+__device__ __forceinline__ uint64_t gl_acc_reduce(const gl_acc& a) {
+  uint32_t r1, r2, r3, r4;
+  asm("add.cc.u32 %0, %4, %8;\n\t"
+      "addc.cc.u32 %1, %5, %9;\n\t"
+      "addc.cc.u32 %2, %6, %10;\n\t"
+      "addc.u32 %3, %7, 0;"
+      : "=r"(r1), "=r"(r2), "=r"(r3), "=r"(r4)
+      : "r"((uint32_t)(a.e01 >> 32)), "r"((uint32_t)a.e23),
+        "r"((uint32_t)(a.e23 >> 32)), "r"(a.e4), "r"((uint32_t)a.o01),
+        "r"((uint32_t)(a.o01 >> 32)), "r"(a.o2));
+  const uint64_t v = gl_reduce128(((uint64_t)r1 << 32) | (uint32_t)a.e01,
+                                  ((uint64_t)r3 << 32) | r2);
+  return gl_sub(v, (uint64_t)r4 << 32);
+}
+
 __device__ __forceinline__ uint64_t gl_neg(uint64_t a) {
   return a ? GL_P - a : 0;
 }

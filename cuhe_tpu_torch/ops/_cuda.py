@@ -40,7 +40,7 @@ _SIGNATURES = {
     "cuhe_ntt_fwd_digits": "pppp" + "iiiiiii",
     "cuhe_ntt_inv_modcrt": "pppppp" + "iiii",
     "cuhe_icrt": "pppppp" + "iiii",
-    "cuhe_relin_mulacc": "pppppppp" + "iiiiii",
+    "cuhe_relin_mulacc": "pppppppp" + "iiiiiiii",
     "cuhe_calib": "p" + "iii",
     # the NTT passes one at a time (probes/ablate.py)
     "cuhe_ntt_cols_io": "pppp" + "iii",
@@ -53,6 +53,8 @@ _SIGNATURES = {
     "cuhe_ntt_inv_cols": "pppp" + "iii",
     # resident blocks per SM of a pass's kernel (no launch)
     "cuhe_ntt_blocks_per_sm": "iii",
+    "cuhe_relin_blocks_per_sm": "ii",
+    "cuhe_icrt_blocks_per_sm": "ii",
     # rate probes (probes/calib.py)
     "cuhe_probe_alu": "pp" + "iii",
     "cuhe_probe_dot_s8": "ppp" + "iiii",

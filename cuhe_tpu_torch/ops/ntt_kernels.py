@@ -218,6 +218,31 @@ def relin_mulacc_plain(d_pair, ek_pair, *, j0: int, pnum: int, acc=None):
     return modp.to_u32(out[0]), modp.to_u32(out[1])
 
 
+# The multiply-accumulate kernel's accumulator is exact for fewer than 2^31
+# digits (csrc/goldilocks.cuh, gl_acc_mac).
+LAZY_MAX_DIGITS = (1 << 31) - 1
+
+# Its block tile (csrc/relin.cu): 32 positions by thread groups of
+# RELIN_RB ciphertexts x RELIN_RP planes, at most RELIN_MAX_GROUPS groups
+# (640 threads) and RELIN_MAX_PLANE_GROUPS plane groups (the shared memory
+# of its staged rows under 48 KB).
+RELIN_RB, RELIN_RP = 2, 5
+RELIN_POSITIONS = 32
+RELIN_MAX_GROUPS, RELIN_MAX_PLANE_GROUPS = 20, 8
+# ciphertext groups per block where the planes leave room for them
+RELIN_B_GROUPS = 4
+
+
+def relin_tile(batch: int, pnum: int) -> tuple[int, int]:
+    """(ciphertext groups, plane groups) of relin_mulacc's block: enough
+    plane groups for every plane (at most RELIN_MAX_PLANE_GROUPS), then up
+    to RELIN_B_GROUPS ciphertext groups, no more than the batch needs."""
+    pg = min(-(-pnum // RELIN_RP), RELIN_MAX_PLANE_GROUPS)
+    bg = max(1, min(RELIN_B_GROUPS, RELIN_MAX_GROUPS // pg,
+                    -(-batch // RELIN_RB)))
+    return bg, pg
+
+
 def relin_mulacc(d_pair, ek_pair, *, j0: int, pnum: int, acc=None):
     """acc + sum_jj d[jj] * ek[j0 + jj, :pnum] mod P.
 
@@ -230,15 +255,22 @@ def relin_mulacc(d_pair, ek_pair, *, j0: int, pnum: int, acc=None):
     dev = d_lo.device
     c, n = d_lo.shape[0], d_lo.shape[-1]
     lead = tuple(d_lo.shape[1:-1])
-    _cuda.check(d_lo, "d_lo", torch.uint32)
-    _cuda.check(d_hi, "d_hi", torch.uint32, d_lo.shape, dev)
+    # the kernel stages its operands with 16-byte copies of 32 positions
+    _cuda.check(d_lo, "d_lo", torch.uint32, align=16)
+    _cuda.check(d_hi, "d_hi", torch.uint32, d_lo.shape, dev, align=16)
     ek_lo, ek_hi = ek_pair
-    _cuda.check(ek_lo, "ek_lo", torch.uint32, device=dev)
-    _cuda.check(ek_hi, "ek_hi", torch.uint32, ek_lo.shape, dev)
+    _cuda.check(ek_lo, "ek_lo", torch.uint32, device=dev, align=16)
+    _cuda.check(ek_hi, "ek_hi", torch.uint32, ek_lo.shape, dev, align=16)
     knum, pnum_ek, n_ek = ek_lo.shape
     if n_ek != n or j0 < 0 or j0 + c > knum or not 0 < pnum <= pnum_ek:
         raise ValueError(f"eval keys {tuple(ek_lo.shape)} do not cover "
                          f"digits {j0}..{j0 + c - 1}, {pnum} planes, n={n}")
+    if n % RELIN_POSITIONS:
+        raise ValueError(f"n = {n}: the kernel takes a multiple of "
+                         f"{RELIN_POSITIONS}")
+    if not 0 < c <= LAZY_MAX_DIGITS:
+        raise ValueError(f"{c} digits: the kernel's accumulator is exact for "
+                         f"1..{LAZY_MAX_DIGITS}")
     shape = lead + (pnum, n)
     if acc is not None:
         _cuda.check(acc[0], "acc_lo", torch.uint32, shape, dev)
@@ -250,8 +282,15 @@ def relin_mulacc(d_pair, ek_pair, *, j0: int, pnum: int, acc=None):
         _cuda.launch("relin_mulacc", "cuhe_relin_mulacc", dev, d_lo, d_hi,
                      ek_lo, ek_hi, None if acc is None else acc[0],
                      None if acc is None else acc[1], out_lo, out_hi, batch,
-                     pnum, pnum_ek, n, c, j0)
+                     pnum, pnum_ek, n, c, j0, *relin_tile(batch, pnum))
     return out_lo, out_hi
+
+
+def relin_blocks_per_sm(batch: int, pnum: int, device) -> int:
+    """Resident blocks per SM of relin_mulacc's kernel at the tile it takes
+    for this batch and pnum (cudaOccupancyMaxActiveBlocksPerMultiprocessor)."""
+    return _cuda.query("cuhe_relin_blocks_per_sm", torch.device(device),
+                       *relin_tile(batch, pnum))
 
 
 def relin_digits_mulacc(raw, ek_pair, n: int, *, w: int, j0: int, c: int,

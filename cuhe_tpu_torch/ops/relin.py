@@ -22,9 +22,11 @@ import torch
 from . import ntt_kernels as nk
 
 # Bound on one chunk's digit-NTT scratch: at PRINCE level 0 (batch 32,
-# n = 32768) it gives c = 8 digits, 64 MiB, and keeps the scratch small next
-# to the 262 MB of eval keys.
-DIGIT_SCRATCH_BYTES = 64 << 20
+# n = 32768) all 40 digits form one chunk, 320 MiB, so the multiply-
+# accumulate runs once per step and its accumulator never leaves the
+# registers between digits; a larger batch or level takes more chunks, each
+# adding the previous chunk's partial.
+DIGIT_SCRATCH_BYTES = 320 << 20
 
 
 def digit_chunk(batch: int, n: int, knum: int) -> int:

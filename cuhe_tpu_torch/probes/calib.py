@@ -239,10 +239,11 @@ _SASS_INSTRUCTION = re.compile(
     r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)\s*([^;]*);")
 
 
-def sass_loop(sass: str, kernel: str) -> collections.Counter:
+def sass_loop(sass: str, kernel: str, most: str = "") -> collections.Counter:
     """Opcodes of the longest loop (a backward branch and the instructions
     back to its target) of the kernel whose name holds `kernel`, in the text
-    `cuobjdump -sass` prints."""
+    `cuobjdump -sass` prints; with `most`, of the loop with the most
+    instructions whose opcode starts with it."""
     for function in re.split(r"\n\s*Function : ", sass)[1:]:
         name, _, code = function.partition("\n")
         if kernel not in name:
@@ -255,7 +256,8 @@ def sass_loop(sass: str, kernel: str) -> collections.Counter:
                  and (t := int(rest.split()[0], 16)) < a and t in where]
         if not loops:
             raise ValueError(f"{name}: no loop in its SASS")
-        return collections.Counter(op for _, op, _ in max(loops, key=len))
+        return collections.Counter(op for _, op, _ in max(
+            loops, key=lambda l: sum(op.startswith(most) for _, op, _ in l)))
     raise ValueError(f"no kernel named *{kernel}* in the SASS")
 
 

@@ -100,8 +100,9 @@ def test_relinearize_matches_jax():
 
 
 def test_digit_chunk_is_sized_from_the_scratch_bound():
-    # PRINCE level 0: batch 32, n = 32768 -> 8 digits (64 MiB of digit NTTs)
-    assert relin.digit_chunk(32, 32768, 40) == 8
+    # PRINCE level 0: batch 32, n = 32768 -> all 40 digits (320 MiB of digit
+    # NTTs)
+    assert relin.digit_chunk(32, 32768, 40) == 40
     # the entry configuration: all 7 digits in one chunk
     assert relin.digit_chunk(2, 16384, 7) == 7
     assert relin.digit_chunk(1 << 20, 65536, 40) == 1
