@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's homomorphic gate step on one NVIDIA H100.
+"""Drive the PyTorch port's homomorphic gate step and DHS scheme on one
+NVIDIA H100.
 
     python3 chip_smoke.py
 
@@ -18,6 +19,10 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      edge residues; the multiply-accumulate at a later digit chunk with a
      partial, at fewer planes than the keys hold, on edge values and with
      every operand P-1, and all digits in launches of 8 against one launch;
+     and every B kernel at the DHS scheme's shapes (`dhs_shapes`): one
+     ciphertext with no batch axis and with a batch of 1 at each level of
+     CuDHS(5, 2, 1, 61, 20, 8191), 1-bit windows over 141 digits, keygen's
+     batch of 141;
   3. the entry configuration (16k ring, 4 primes, batch 2): the step on the
      card with the kernels equals the step on the CPU with the plain
      versions (which the tests hold against the JAX package);
@@ -30,7 +35,13 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      then the probe run, with its own launch counts: tensor-core dots (P1),
      add / xor / shift (P2), the NTT passes at the TPU stage ablations'
      points (P3, P4) and at PRINCE level 0's shapes, each timed output
-     held against its plain version's.
+     held against its plain version's;
+  6. the DHS scheme on the card (`dhs_scheme`): the light configuration's
+     keys, ciphertexts and gate outputs equal the CPU's; the shipped
+     CuDHS(5, 2, 1, 61, 20, 8191) keygen (timed by phase), XOR, NOT and
+     AND -> relin -> modSwitch decrypting right, a CuDHS from the private
+     key string, the launch counts of one AND gate (every B kernel must
+     launch), each gate's time and the AND gate's idle share.
 Every kernel time is held against its bound: a time under it fails the run.
 It prints a `kernels` JSON line, the card's name and power limit, and last
 {"ok": true, "device": {...}}.  It needs one card and no network.
@@ -49,10 +60,10 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def profile_step(run, step_ms: float, card: str) -> None:
-    """Device time of one step by kernel (torch.profiler), split into the
+def profile_step(run, step_ms: float, card: str, label: str) -> None:
+    """Device time of one run by kernel (torch.profiler), split into the
     port's CUDA kernels and PyTorch's own kernels, and the idle share
-    against the step's CUDA-event time."""
+    against the run's CUDA-event time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -74,7 +85,7 @@ def profile_step(run, step_ms: float, card: str) -> None:
         s in r[0] for s in ("fwd_cols", "ntt_rows", "inv_cols", "icrt_kernel",
                             "relin_mulacc_kernel"))]
     ours = sum(ms for _, ms, _ in port)
-    log(f"[profile] one batch-32 step: device busy {busy:.3f} ms "
+    log(f"[profile] {label}: device busy {busy:.3f} ms "
         f"(port kernels {ours:.3f} ms, PyTorch kernels {busy - ours:.3f} ms), "
         f"{len(rows)} kernel names, idle share "
         f"{max(0.0, 1 - busy / step_ms):.3f} of {step_ms:.3f} ms [{card}]")
@@ -82,6 +93,292 @@ def profile_step(run, step_ms: float, card: str) -> None:
         log(f"[profile]   {ms:9.3f} ms  x{cnt:<5d} {k[:90]}")
     for k, ms, cnt in port:  # device time of each port kernel in the step
         log(f"[profile] port {ms:9.3f} ms  x{cnt:<5d} {k[:90]}")
+
+
+def dhs_shapes(dev, card, compare, rand_u32, rand_pair) -> None:
+    """Phase 2 at the DHS scheme's shapes (CuDHS(5, 2, 1, 61, 20, 8191)):
+    every B kernel on one ciphertext with no batch axis and with a batch of
+    1, at each level's primes and ICRT words (7 primes and 5 words at level
+    0 down to 3 and 2 at level 4), relinearization with 1-bit windows over
+    all 141 (level 0) and 121 (level 1) digits in one chunk, the
+    multiply-accumulate at 7 and 6 of the keys' 7 planes, and keygen's
+    batch of 141 polynomials."""
+    import torch
+    from cuhe_tpu_torch import entry as port_entry
+    from cuhe_tpu_torch.context import Context
+    from cuhe_tpu_torch.ops import crt, modp
+    from cuhe_tpu_torch.ops import ntt_kernels as nk
+    from cuhe_tpu_torch.params import make_params
+    from cuhe_tpu_torch.probes.timing import cuda_ms
+
+    ctx = Context(make_params(*port_entry.SIMPLE_DHS_PARAMS), dev)
+    pr, n = ctx.params, ctx.n
+
+    def residues(shape, primes):
+        return modp.to_u32(torch.remainder(
+            modp.to_i64(rand_u32(shape)), modp.to_i64(primes)[:, None]))
+
+    for lvl in range(pr.depth):
+        t = ctx.level(lvl)
+        pn, words = t.pn, pr.words_coeff(lvl)
+        icrt_args = (t.primes, t.bi, t.mi_words, t.m_words)
+        for lead in ((), (1,)):
+            tag = (f"simple_dhs lvl {lvl}, {pn} primes, {words} words, "
+                   f"lead {lead}")
+            x = rand_u32(lead + (pn, n // 2))
+            xp = rand_pair(lead + (pn, n))
+            ce = residues(lead + (pn, n // 2), t.primes)
+            cases = {
+                "ntt_fwd": (lambda: nk.fwd_linear(x, n),
+                            lambda: nk.fwd_linear_plain(x, n)),
+                "ntt_inv_modcrt": (lambda: nk.inv_linear(xp, n, t.primes),
+                                   lambda: nk.inv_linear_plain(xp, n,
+                                                               t.primes)),
+                "icrt": (lambda: crt.icrt_to_raw(ce, *icrt_args),
+                         lambda: crt.icrt_to_raw_plain(ce, *icrt_args)),
+            }
+            for name, (kern, plain) in cases.items():
+                compare(name, tag, kern, plain)
+                if lvl == 0 and not lead:
+                    log(f"[time] {name} {tag}: kernel "
+                        f"{cuda_ms(kern, 20):.4f} ms, plain "
+                        f"{cuda_ms(plain, 3):.4f} ms [{card}]")
+    # relinearization: every digit in one chunk, one ciphertext
+    w = pr.log_relin
+    ek = rand_pair((pr.num_eval_key, pr.num_crt_prime, n))
+    for lvl in (0, 1):
+        t = ctx.level(lvl)
+        words, knum = pr.words_coeff(lvl), pr.num_eval_key_lvl(lvl)
+        for lead in ((), (1,)):
+            raw = rand_u32(lead + (words, n // 2))
+            tag = (f"simple_dhs lvl {lvl}, w {w}, {knum} digits, {t.pn} of "
+                   f"{pr.num_crt_prime} planes, lead {lead}")
+            dig = nk.ntt_fwd_digits(raw, n, w=w, j0=0, c=knum)
+            cases = {
+                "ntt_fwd_digits": (
+                    lambda: dig,
+                    lambda: nk.ntt_fwd_digits_plain(raw, n, w=w, j0=0,
+                                                    c=knum)),
+                "relin_mulacc": (
+                    lambda: nk.relin_mulacc(dig, ek, j0=0, pnum=t.pn),
+                    lambda: nk.relin_mulacc_plain(dig, ek, j0=0,
+                                                  pnum=t.pn)),
+            }
+            for name, (kern, plain) in cases.items():
+                compare(name, tag, kern, plain)
+            if lvl == 0 and not lead:
+                digits_ms = cuda_ms(
+                    lambda: nk.ntt_fwd_digits(raw, n, w=w, j0=0, c=knum), 20)
+                mulacc_ms = cuda_ms(cases["relin_mulacc"][0], 20)
+                log(f"[time] {tag}: ntt_fwd_digits {digits_ms:.4f} ms, "
+                    f"relin_mulacc {mulacc_ms:.4f} ms, tile "
+                    f"{nk.relin_tile(1, t.pn)} [{card}]")
+    # keygen's batch: the 141 eval keys (and their products) at level 0
+    t = ctx.level(0)
+    keys = pr.num_eval_key
+    x = rand_u32((keys, t.pn, n // 2))
+    xp = rand_pair((keys, t.pn, n))
+    ce = residues((keys, t.pn, n // 2), t.primes)
+    tag = f"simple_dhs keygen batch {keys} x {t.pn} primes"
+    compare("ntt_fwd", tag, lambda: nk.fwd_linear(x, n),
+            lambda: nk.fwd_linear_plain(x, n))
+    compare("ntt_inv_modcrt", tag, lambda: nk.inv_linear(xp, n, t.primes),
+            lambda: nk.inv_linear_plain(xp, n, t.primes))
+    compare("icrt", tag,
+            lambda: crt.icrt_to_raw(ce, t.primes, t.bi, t.mi_words, t.m_words),
+            lambda: crt.icrt_to_raw_plain(ce, t.primes, t.bi, t.mi_words,
+                                          t.m_words))
+    del ctx, ek, x, xp, ce
+    torch.cuda.empty_cache()
+
+
+class CallTimer:
+    """Wall time (device synchronised) of calls to some functions, by name:
+    each (owner, attribute) is wrapped while the timer is open."""
+
+    def __init__(self, targets):
+        self.targets = targets
+        self.seconds = {}
+
+    def __enter__(self):
+        import functools
+
+        import torch
+
+        self.saved = []
+        for owner, attr in self.targets:
+            fn = getattr(owner, attr)
+            self.saved.append((owner, attr, fn))
+            key = f"{getattr(owner, '__name__', owner)}.{attr}"
+
+            @functools.wraps(fn)
+            def timed(*a, _fn=fn, _key=key, **k):
+                t0 = time.perf_counter()
+                out = _fn(*a, **k)
+                torch.cuda.synchronize()
+                self.seconds[_key] = (self.seconds.get(_key, 0.0)
+                                      + time.perf_counter() - t0)
+                return out
+            setattr(owner, attr, timed)
+        return self
+
+    def __exit__(self, *exc):
+        for owner, attr, fn in self.saved:
+            setattr(owner, attr, fn)
+        return False
+
+
+def dhs_scheme(dev, card) -> None:
+    """Phase 6, the DHS scheme on the card.  (a) The light configuration
+    CuDHS(3, 2, 16, 50, 25, 8191, seed=7) on the card and on the CPU: equal
+    key strings, ciphertexts and gate outputs, decoding to the plaintext
+    bits.  (b) The reference's shipped CuDHS(5, 2, 1, 61, 20, 8191) on the
+    card: timed keygen, encrypt, XOR / NOT / AND -> relin -> modSwitch
+    decrypting right, a second scheme from the private key string
+    decrypting the same ciphertext, the launch counts of one AND gate (each
+    B kernel must launch), each gate's time and the AND gate's device busy
+    and idle share."""
+    import numpy as np
+    import torch
+    from cuhe_tpu_torch import dhs as port_dhs
+    from cuhe_tpu_torch import entry as port_entry
+    from cuhe_tpu_torch import poly
+    from cuhe_tpu_torch.ops import _cuda
+    from cuhe_tpu_torch.probes.timing import cuda_ms
+
+    def gates(scheme, cts):
+        """XOR (NTT), NOT (CRT) and AND -> relin -> modSwitch of the first
+        two ciphertexts: (their host coefficients, the AND's level)."""
+        ctx = scheme.ctx
+        x, y = (poly.to_ntt(ctx, poly.ctxt_from_ints(c, 0)) for c in cts[:2])
+        xor = poly.to_ints(ctx, poly.c_xor(ctx, x, y))
+        cnot = poly.to_ints(ctx, poly.c_not(
+            ctx, poly.to_crt(ctx, poly.ctxt_from_ints(cts[0], 0))))
+        z = poly.mod_switch(ctx, poly.relin(ctx, poly.c_and(ctx, x, y)))
+        return {"xor": xor, "not": cnot, "and": poly.to_ints(ctx, z)}, z.level
+
+    def check_decrypt(scheme, outs, msgs, tag):
+        dec = scheme.batcher.decode
+        want = {"xor": [a ^ b for a, b in zip(msgs[0], msgs[1])],
+                "not": [1 - a for a in msgs[0]],
+                "and": [a & b for a, b in zip(msgs[0], msgs[1])]}
+        lvl = {"xor": 0, "not": 0, "and": 1}
+        for g, v in outs.items():
+            if dec(scheme.decrypt(v, lvl[g])) != want[g]:
+                raise AssertionError(f"{tag}: {g} decrypts wrong")
+        log(f"[dhs] {tag}: XOR, NOT and AND -> relin -> modSwitch decrypt "
+            f"and decode right ({len(msgs[0])} slots)")
+
+    # ---- (a) light configuration: card == CPU ----
+    light = port_entry.ENTRY_PARAMS
+    t0 = time.perf_counter()
+    gpu = port_dhs.CuDHS(*light, seed=7, device=dev)
+    torch.cuda.synchronize()
+    t_gpu = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cpu = port_dhs.CuDHS(*light, seed=7, device="cpu")
+    t_cpu = time.perf_counter() - t0
+    if gpu.get_private_key() != cpu.get_private_key():
+        raise AssertionError("light DHS: card and CPU private keys differ")
+    rng = np.random.default_rng(7)
+    msgs = [[int(b) for b in rng.integers(0, 2, gpu.num_slot)]
+            for _ in range(2)]
+    cts = [gpu.encrypt(gpu.batcher.encode(m), 0) for m in msgs]
+    if cts != [cpu.encrypt(cpu.batcher.encode(m), 0) for m in msgs]:
+        raise AssertionError("light DHS: card and CPU ciphertexts differ")
+    outs, lvl = gates(gpu, cts)
+    if lvl != 1 or outs != gates(cpu, cts)[0]:
+        raise AssertionError("light DHS: card and CPU gate outputs differ")
+    check_decrypt(gpu, outs, msgs, "light CuDHS(3,2,16,50,25,8191) card")
+    log(f"[dhs] light: keys, ciphertexts and XOR / NOT / AND outputs on the "
+        f"card == on the CPU; keygen {t_gpu:.2f} s card, {t_cpu:.2f} s CPU "
+        f"[{card}]")
+    del gpu, cpu
+
+    # ---- (b) the shipped simple_DHS configuration, on the card ----
+    timer = CallTimer([(port_dhs, "Context"),
+                       (port_dhs.CuDHS, "_find_inverse"),
+                       (poly, "poly_mul_one_to_many"),
+                       (port_dhs.CuDHS, "init_relinearization"),
+                       (port_dhs.CuDHS, "_setup_batcher")])
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with timer:
+        dhs = port_entry.simple_dhs(seed=2026, device=dev)
+        torch.cuda.synchronize()
+    keygen_s = time.perf_counter() - t0
+    pr = dhs.params
+    ek = dhs.ctx.ek_ntt
+    shape = (pr.num_eval_key, pr.num_crt_prime, pr.ntt_len)
+    if tuple(ek[0].shape) != shape:
+        raise AssertionError(f"simple_dhs: eval keys {tuple(ek[0].shape)}, "
+                             f"expected {shape}")
+    phases = ", ".join(f"{k} {v:.2f} s" for k, v in timer.seconds.items())
+    log(f"[dhs] simple_dhs CuDHS{port_entry.SIMPLE_DHS_PARAMS}: keygen "
+        f"(context, keys, {shape[0]} eval keys [{shape[1]}, {shape[2]}] in "
+        f"the NTT domain, batcher, {dhs.num_slot} slots) "
+        f"{keygen_s:.2f} s ({phases}); eval keys "
+        f"{2 * ek[0].numel() * 4 / 1e6:.1f} MB; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{card}]")
+    rng = np.random.default_rng(2026)
+    msgs = [[int(b) for b in rng.integers(0, 2, dhs.num_slot)]
+            for _ in range(2)]
+    t0 = time.perf_counter()
+    cts = [dhs.encrypt(dhs.batcher.encode(m), 0) for m in msgs]
+    enc_s = (time.perf_counter() - t0) / len(cts)
+    outs, lvl = gates(dhs, cts)
+    if lvl != 1:
+        raise AssertionError(f"simple_dhs: AND gate ended at level {lvl}")
+    check_decrypt(dhs, outs, msgs, "simple_dhs CuDHS(5,2,1,61,20,8191)")
+    t0 = time.perf_counter()
+    dec = dhs.batcher.decode(dhs.decrypt(outs["and"], 1))
+    dec_s = time.perf_counter() - t0
+    # a second scheme from the private key string decrypts the same gate
+    t0 = time.perf_counter()
+    key = dhs.get_private_key()
+    dhs2 = port_dhs.CuDHS(key_string=key, device=dev)
+    load_s = time.perf_counter() - t0
+    if dhs2.batcher.decode(dhs2.decrypt(outs["and"], 1)) != dec or             dhs2.get_private_key() != key:
+        raise AssertionError("simple_dhs: the key-string scheme decrypts "
+                             "otherwise")
+    log(f"[dhs] simple_dhs: encrypt {enc_s:.3f} s a message, decrypt "
+        f"{dec_s:.3f} s (host included); a CuDHS from the private key "
+        f"string ({len(key) / 1e6:.1f} MB) in {load_s:.2f} s decrypts the "
+        f"AND gate alike [{card}]")
+    del dhs2
+
+    # one AND -> relin -> modSwitch, its launches and its time
+    ctx = dhs.ctx
+    x, y = (poly.to_ntt(ctx, poly.ctxt_from_ints(c, 0)) for c in cts)
+    xc = poly.to_crt(ctx, poly.ctxt_from_ints(cts[0], 0))
+
+    def and_gate():
+        return poly.mod_switch(ctx, poly.relin(ctx, poly.c_and(ctx, x, y)))
+
+    want = and_gate()
+    torch.cuda.synchronize()
+    _cuda.reset_launches()
+    got = and_gate()
+    torch.cuda.synchronize()
+    launches = dict(_cuda.LAUNCHES)
+    log(f"[dhs] launches in one AND -> relin -> modSwitch: {launches}")
+    for name in ("ntt_fwd", "ntt_inv_modcrt", "icrt", "ntt_fwd_digits",
+                 "relin_mulacc"):
+        if launches.get(name, 0) < 1:
+            raise AssertionError(f"simple_dhs AND gate: {name} not launched")
+    if not torch.equal(got.data.view(torch.int32), want.data.view(torch.int32)):
+        raise AssertionError("simple_dhs AND gate: two runs differ")
+    gate_ms = {
+        "xor (NTT)": cuda_ms(lambda: poly.c_xor(ctx, x, y), 20),
+        "not (CRT)": cuda_ms(lambda: poly.c_not(ctx, xc), 20),
+        "and -> relin -> modSwitch": cuda_ms(and_gate, 20),
+    }
+    log("[dhs] simple_dhs gate times (CUDA events, median of 20, one "
+        "ciphertext): " + ", ".join(f"{k} {v:.4f} ms"
+                                    for k, v in gate_ms.items())
+        + f" [{card}]")
+    profile_step(and_gate, gate_ms["and -> relin -> modSwitch"], card,
+                 "one simple_dhs AND -> relin -> modSwitch, batch 1")
 
 
 def main() -> int:
@@ -438,6 +735,8 @@ def main() -> int:
         del x, xp, crt_in, raw, ek, dig, dig1, acc
         torch.cuda.empty_cache()
 
+    dhs_shapes(dev, card, compare, rand_u32, rand_pair)
+
     # ---- 3. entry configuration: card == CPU ------------------------------
     step_cpu, args_cpu = port_entry.entry(device="cpu")
     want = step_cpu(*args_cpu)
@@ -480,7 +779,7 @@ def main() -> int:
         f"{step_ms / 32:.4f} ms per ciphertext, peak memory {peak / 2**30:.2f} GiB "
         f"[{card}]")
 
-    profile_step(lambda: step(*args), step_ms, card)
+    profile_step(lambda: step(*args), step_ms, card, "one batch-32 step")
     del step, args, two, ref, got2, out
     torch.cuda.empty_cache()
 
@@ -493,6 +792,11 @@ def main() -> int:
     probe_launches = dict(_cuda.LAUNCHES)
     log(f"[probes] launches in the probe run: {probe_launches}; "
         f"{time.perf_counter() - t0:.1f} s with the checks")
+
+    # ---- 6. the DHS scheme ------------------------------------------------
+    t0 = time.perf_counter()
+    dhs_scheme(dev, card)
+    log(f"[dhs] phase 6 in {time.perf_counter() - t0:.1f} s")
 
     sources = {"ntt_fwd": ("cuhe_tpu_torch/csrc/ntt.cu",
                            "cuhe_tpu/ops/ntt_kernels.py:330"),

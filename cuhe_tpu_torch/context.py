@@ -1,11 +1,19 @@
-"""Precomputed tables for one parameter set, on one device.
+"""Precomputed tables for one parameter set, on one device, and the
+per-level domain conversions.
 
-Counterpart of ``cuhe_tpu/context.py:63-148, 293-300``: the CRT primes, the
-inverse-prime matrix, the per-level ICRT words, the polynomial Barrett tables
+Counterpart of ``cuhe_tpu/context.py``: the CRT primes, the inverse-prime
+matrix, the per-level ICRT words, the polynomial Barrett tables
 (``m - x^mod_len`` in the CRT and NTT domains, ``u = x^(2 mod_len - 1) div m``
 in the NTT domain, built with the port's forward NTT) and the eval keys.
 Host tables are numpy; the NTT-domain tables and eval keys are uint32 pairs
 on the context's device, in mat-linear order.
+
+The conversions of the reference's CuPolynomial state machine
+(CuHE.cu:317-464; ``cuhe_tpu/context.py:150-291``) are methods taking the
+level and the data: `r2c`, `c2r` (the ICRT kernel), `c2n` (the forward
+NTT), `n2c` (the inverse NTT, then Barrett for a product), `mod_switch`,
+`relin` and `mul_one_many`.  Each level's constants are put on the device
+once, at its first use.  They take a leading batch axis or none.
 
 `Context.from_numpy_state` builds a context from another context's tables
 (for example the JAX package's, converted to numpy) without recomputing them;
@@ -14,12 +22,17 @@ on the context's device, in mat-linear order.
 
 from __future__ import annotations
 
+from dataclasses import dataclass
+
 import numpy as np
 import torch
 
 from . import hostmath as hm
-from .ops import modp
+from .ops import crt, modp
 from .ops import ntt_kernels as nk
+from .ops import pointwise as pw
+from .ops.barrett import barrett_reduce
+from .ops.relin import relinearize
 from .params import Params, make_params
 
 _STATE_KEYS = ("params", "primes_np", "mus_np", "invp_np", "icrt", "m_crt_np",
@@ -103,6 +116,21 @@ def _pair_to(pair, device):
                  for v in pair)
 
 
+@dataclass(frozen=True)
+class LevelTables:
+    """A level's constants on the context's device (uint32)."""
+
+    pn: int                 # CRT primes at the level
+    primes: torch.Tensor    # [pn]
+    invp_last: torch.Tensor  # [pn - 1]: inv(p_last, p_i)
+    bi: torch.Tensor        # [pn]: ICRT inv(M/p_i mod p_i, p_i)
+    mi_words: torch.Tensor  # [pn, words]: M/p_i
+    m_words: torch.Tensor   # [words]: M
+    u_ntt: tuple            # Barrett u, pair [pn, n]
+    m_ntt: tuple            # Barrett m - x^n, pair [pn, n]
+    m_crt: torch.Tensor     # [pn, n/2]
+
+
 class Context:
     """Precomputed state for one parameter set (one ring / prime chain)."""
 
@@ -129,6 +157,7 @@ class Context:
         self.m_ntt = m_ntt
         self.u_ntt = u_ntt
         self.ek_ntt: tuple | None = None
+        self._levels: dict[int, LevelTables] = {}
 
     def set_eval_keys(self, ek_lo, ek_hi) -> None:
         """Install mat-linear NTT-domain eval keys [num_eval_key, pnum, n]
@@ -141,9 +170,73 @@ class Context:
                                  f"{v.dtype} {tuple(v.shape)}")
         self.ek_ntt = (lo.contiguous(), hi.contiguous())
 
-    def barrett_args(self):
-        """Big Barrett tables: (u_lo, u_hi, m_lo, m_hi, m_crt)."""
-        return self.u_ntt + self.m_ntt + (self.m_crt,)
+    # ---- per-level conversions (CuPolynomial state machine) ----
+    def level(self, lvl: int) -> LevelTables:
+        """The constants of level `lvl`, on the device (made once)."""
+        if lvl not in self._levels:
+            pn = self.params.num_crt_prime_lvl(lvl)
+            m_words, mi_words, bi = self._icrt[lvl]
+
+            def dev(a):
+                return torch.from_numpy(np.array(a, dtype=np.uint32)).to(
+                    self.device)
+
+            self._levels[lvl] = LevelTables(
+                pn=pn, primes=dev(self.primes_np[:pn]),
+                invp_last=dev(self.invp_np[pn - 1, : pn - 1]), bi=dev(bi),
+                mi_words=dev(mi_words), m_words=dev(m_words),
+                u_ntt=tuple(v[:pn] for v in self.u_ntt),
+                m_ntt=tuple(v[:pn] for v in self.m_ntt),
+                m_crt=self.m_crt[:pn])
+        return self._levels[lvl]
+
+    def r2c(self, lvl: int, raw: torch.Tensor) -> torch.Tensor:
+        """RAW words [.., words, n/2] -> CRT residues [.., pn, n/2]."""
+        return crt.crt_from_raw(raw, self.level(lvl).primes)
+
+    def c2r(self, lvl: int, c: torch.Tensor) -> torch.Tensor:
+        """CRT residues -> RAW words in [0, q_lvl) (the ICRT kernel)."""
+        t = self.level(lvl)
+        return crt.icrt_to_raw(c, t.primes, t.bi, t.mi_words, t.m_words)
+
+    def c2n(self, c: torch.Tensor):
+        """Coefficients [.., n/2] -> NTT-domain pair [.., n] (the forward
+        NTT); the same at every level, and for a plaintext's word plane."""
+        return nk.fwd_linear(c, self.n)
+
+    def n2c(self, lvl: int, is_prod: bool, pair) -> torch.Tensor:
+        """NTT-domain pair [.., pn, n] -> CRT residues [.., pn, n/2]: the
+        inverse NTT mod each prime, then for a product (degree up to
+        2 mod_len - 2) the polynomial Barrett reduction mod m(x)."""
+        t = self.level(lvl)
+        full = nk.inv_linear(pair, self.n, t.primes)
+        if not is_prod:
+            return full[..., : self.n // 2].contiguous()
+        return barrett_reduce(full, mod_len=self.mod_len, n=self.n,
+                              u_ntt=t.u_ntt, m_ntt=t.m_ntt, m_crt=t.m_crt,
+                              primes=t.primes)
+
+    def mod_switch(self, lvl: int, c: torch.Tensor) -> torch.Tensor:
+        """CRT residues at level lvl -> level lvl + 1 (one prime fewer)."""
+        t = self.level(lvl)
+        return pw.mod_switch(c, t.primes, t.invp_last, self.params.mod_msg)
+
+    def relin(self, lvl: int, raw: torch.Tensor):
+        """RAW words of a product -> NTT-domain pair [.., pn, n] of the
+        relinearized ciphertext (the digit NTT and multiply-accumulate
+        kernels, over the level's eval keys)."""
+        if self.ek_ntt is None:
+            raise RuntimeError("relinearization keys not initialised")
+        pr = self.params
+        return relinearize(raw, *self.ek_ntt, w=pr.log_relin,
+                           knum=pr.num_eval_key_lvl(lvl),
+                           pnum=self.level(lvl).pn, n=self.n)
+
+    def mul_one_many(self, lvl: int, raw_batch: torch.Tensor, a_pair):
+        """RAW words [B, words, n/2] of B polynomials times one NTT-domain
+        operand [pn, n], mod m(x) and q_lvl: RAW words [B, words, n/2]."""
+        b = self.c2n(self.r2c(lvl, raw_batch))
+        return self.c2r(lvl, self.n2c(lvl, True, pw.ntt_mul(b, a_pair)))
 
     # ---- state interchange ----
     def numpy_state(self) -> dict:

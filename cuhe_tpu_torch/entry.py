@@ -1,5 +1,6 @@
-"""Entry points: the gate step at the JAX package's entry configuration, and
-at PRINCE level 0.
+"""Entry points: the gate step at the JAX package's entry configuration and
+at PRINCE level 0, and the DHS scheme at the reference's shipped
+configuration.
 
 `entry()` is the twin of ``__graft_entry__.entry()``: the same parameters,
 ``make_params(3, 2, 16, 50, 25, 8191)`` (16k ring, 4 primes), the same
@@ -12,7 +13,11 @@ level-0 gate: n = 32768, 25 primes, 40 eval-key digits, and the S-box's
 batched AND of 32 ciphertexts.  Keys and inputs are random, from the same
 seeds: the step's work does not depend on their values.
 
-Both run on the card unless the caller passes ``device="cpu"``.
+`simple_dhs()` is the DHS scheme at the reference's shipped simple_DHS
+configuration (``CuDHS(5, 2, 1, 61, 20, 8191)``, examples/run_simple_dhs.py):
+n = 16384, 7 primes at level 0, 141 one-bit eval keys, depth 5, 630 slots.
+
+All run on the card unless the caller passes ``device="cpu"``.
 """
 
 from __future__ import annotations
@@ -21,11 +26,13 @@ import numpy as np
 import torch
 
 from .context import Context, resolve_device
+from .dhs import CuDHS
 from .params import make_params
 from .step import GateStep
 
 ENTRY_PARAMS = (3, 2, 16, 50, 25, 8191)
 PRINCE_PARAMS = (25, 2, 16, 25, 25, 21845)
+SIMPLE_DHS_PARAMS = (5, 2, 1, 61, 20, 8191)
 
 
 def _random_pairs(rng, shape, count):
@@ -70,3 +77,9 @@ def make_prince_l0_step(batch: int = 32, device="cuda"):
     with random eval keys (rng 0) and inputs (rng 1)."""
     ctx = keyed_context(PRINCE_PARAMS, device)
     return GateStep(ctx, 0), example_batch(ctx, batch)
+
+
+def simple_dhs(seed: int | None = None, device="cuda") -> CuDHS:
+    """The DHS scheme at SIMPLE_DHS_PARAMS: keygen (141 eval keys in the NTT
+    domain) with host sampling from numpy rng `seed`."""
+    return CuDHS(*SIMPLE_DHS_PARAMS, seed=seed, device=device)

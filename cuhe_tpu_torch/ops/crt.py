@@ -1,6 +1,11 @@
-"""Inverse CRT of residue planes to RAW multiword coefficients.
+"""CRT decomposition of RAW multiword coefficients, and its inverse.
 
-Counterpart of ``cuhe_tpu/ops/crt.py:43-162``: for each coefficient
+`crt_from_raw`, the counterpart of ``cuhe_tpu/ops/crt.py:25-41``, reduces
+each coefficient mod each prime by Horner over its words; it is elementwise
+work in plain PyTorch (the JAX package leaves it to XLA), with no kernel.
+
+The inverse is the counterpart of ``cuhe_tpu/ops/crt.py:43-162``: for each
+coefficient
 
     x = sum_i ((x_i * b_i mod p_i) * M/p_i)  mod M
 
@@ -23,6 +28,17 @@ from . import _cuda, modp
 from .ntt_kernels import _is_cpu
 
 MAX_WORDS = 32  # the kernel's widest instantiation (csrc/icrt.cu kMaxWords)
+
+
+def crt_from_raw(raw: torch.Tensor, primes: torch.Tensor) -> torch.Tensor:
+    """RAW uint32 [.., words, L] -> CRT residues uint32 [.., pnum, L] for
+    primes uint32 [pnum]: Horner from the top word, r = (r 2^32 + w) mod p."""
+    x = modp.to_i64(raw)
+    p = modp.to_i64(primes)[:, None]
+    r = torch.remainder(x[..., -1, None, :], p)
+    for w in range(x.shape[-2] - 2, -1, -1):
+        r = modp.mod_p64((x[..., w, None, :], r), p)
+    return modp.to_u32(r)
 
 
 def icrt_to_raw_plain(crt, primes, bi, mi_words, m_words) -> torch.Tensor:

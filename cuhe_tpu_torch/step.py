@@ -33,10 +33,6 @@ from .ops.pointwise import mod_switch
 from .ops.relin import relinearize
 
 
-def _u32(a) -> torch.Tensor:
-    return torch.from_numpy(a.astype("uint32"))
-
-
 class GateStep(nn.Module):
     """Batched AND + relinearize + modswitch at one level of a Context."""
 
@@ -45,7 +41,7 @@ class GateStep(nn.Module):
         if ctx.ek_ntt is None:
             raise RuntimeError("eval keys not initialised")
         pr = ctx.params
-        pn = pr.num_crt_prime_lvl(lvl)
+        t = ctx.level(lvl)
         self.ctx = ctx
         self.lvl = lvl
         self.n = ctx.n
@@ -53,21 +49,16 @@ class GateStep(nn.Module):
         self.mod_msg = pr.mod_msg
         self.w = pr.log_relin
         self.knum = pr.num_eval_key_lvl(lvl)
-        self.pn = pn
-        m_words, mi_words, bi = ctx._icrt[lvl]
-        u_lo, u_hi, m_lo, m_hi, m_crt = ctx.barrett_args()
+        self.pn = t.pn
         tables = {
-            "primes": _u32(ctx.primes_np[:pn]),
-            "invp_last": _u32(ctx.invp_np[pn - 1, : pn - 1]),
-            "bi": _u32(bi), "mi_words": _u32(mi_words),
-            "m_words": _u32(m_words),
-            "u_lo": u_lo[:pn], "u_hi": u_hi[:pn],
-            "m_lo": m_lo[:pn], "m_hi": m_hi[:pn], "m_crt": m_crt[:pn],
+            "primes": t.primes, "invp_last": t.invp_last, "bi": t.bi,
+            "mi_words": t.mi_words, "m_words": t.m_words,
+            "u_lo": t.u_ntt[0], "u_hi": t.u_ntt[1],
+            "m_lo": t.m_ntt[0], "m_hi": t.m_ntt[1], "m_crt": t.m_crt,
             "ek_lo": ctx.ek_ntt[0], "ek_hi": ctx.ek_ntt[1],
         }
-        for name, t in tables.items():
-            self.register_buffer(name, t.to(ctx.device).contiguous(),
-                                 persistent=False)
+        for name, v in tables.items():
+            self.register_buffer(name, v.contiguous(), persistent=False)
         if plain:
             self._fwd, self._inv = nk.fwd_linear_plain, nk.inv_linear_plain
             self._icrt = crt.icrt_to_raw_plain

@@ -1,7 +1,7 @@
 """The port stands alone: cuhe_tpu_torch and chip_smoke.py import neither jax
-nor anything of cuhe_tpu, the kernel modules import without nvcc or a card,
-and an entry point asked for CUDA without a card raises instead of running
-on the CPU."""
+nor anything of cuhe_tpu (nor a file of native/), the kernel modules import
+without nvcc or a card, and an entry point asked for CUDA without a card
+raises instead of running on the CPU."""
 
 import ast
 import subprocess
@@ -11,10 +11,12 @@ from pathlib import Path
 import pytest
 import torch
 
-from cuhe_tpu_torch import context, entry
+from cuhe_tpu_torch import api, context, entry
+from cuhe_tpu_torch.dhs import CuDHS
 from cuhe_tpu_torch.ops import _cuda
 from cuhe_tpu_torch.ops import ntt_kernels as nk
 from cuhe_tpu_torch.params import make_params
+from cuhe_tpu_torch.utils import checkpoint
 
 REPO = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((REPO / "cuhe_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
@@ -25,7 +27,7 @@ MODULES = sorted(
 
 
 def _forbidden(name: str) -> bool:
-    return name.split(".")[0] in ("jax", "jaxlib", "cuhe_tpu")
+    return name.split(".")[0] in ("jax", "jaxlib", "cuhe_tpu", "native")
 
 
 def test_no_file_imports_jax_or_cuhe_tpu():
@@ -39,6 +41,8 @@ def test_no_file_imports_jax_or_cuhe_tpu():
                 names = [node.module]
             bad = [n for n in names if _forbidden(n)]
             assert not bad, f"{path.relative_to(REPO)} imports {bad}"
+        # nor loads the JAX package's native library
+        assert "libcuhe_host" not in path.read_text(), path
 
 
 def test_importing_the_port_loads_neither_jax_nor_cuhe_tpu():
@@ -70,6 +74,24 @@ def test_cuda_entry_points_without_a_card_raise(monkeypatch):
         entry.entry()
     with pytest.raises(RuntimeError, match="no card"):
         entry.make_prince_l0_step(batch=2)
+    with pytest.raises(RuntimeError, match="no card"):
+        CuDHS(*entry.ENTRY_PARAMS, seed=7)
+    with pytest.raises(RuntimeError, match="no card"):
+        CuDHS(key_string="d,3")
+    with pytest.raises(RuntimeError, match="no card"):
+        entry.simple_dhs(seed=7)
+    api.setParameters(*entry.ENTRY_PARAMS)
+    try:
+        with pytest.raises(RuntimeError, match="no card"):
+            api.initCuHE()
+        with pytest.raises(RuntimeError, match="no card"):
+            api.context()
+    finally:
+        api.resetParameters()
+    with pytest.raises(RuntimeError, match="no card"):
+        checkpoint.load_ctxt("unused.npz")
+    with pytest.raises(RuntimeError, match="no card"):
+        checkpoint.load_state("unused.npz")
 
 
 def test_front_ends_take_only_cpu_or_cuda_tensors():
