@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's homomorphic gate step and DHS scheme on one
-NVIDIA H100.
+"""Drive the PyTorch port's homomorphic gate step, DHS scheme and PRINCE
+circuit on one NVIDIA H100.
 
     python3 chip_smoke.py
 
@@ -22,7 +22,9 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      and every B kernel at the DHS scheme's shapes (`dhs_shapes`): one
      ciphertext with no batch axis and with a batch of 1 at each level of
      CuDHS(5, 2, 1, 61, 20, 8191), 1-bit windows over 141 digits, keygen's
-     batch of 141;
+     batch of 141; and at the PRINCE circuit's (`prince_shapes`): level 1's
+     relinearization of 64 ciphertexts (38 digits in two chunks, 24 of 25
+     planes) and B1, B2, B3 at the deepest levels' 2 and 1 primes;
   3. the entry configuration (16k ring, 4 primes, batch 2): the step on the
      card with the kernels equals the step on the CPU with the plain
      versions (which the tests hold against the JAX package);
@@ -41,7 +43,16 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      CuDHS(5, 2, 1, 61, 20, 8191) keygen (timed by phase), XOR, NOT and
      AND -> relin -> modSwitch decrypting right, a CuDHS from the private
      key string, the launch counts of one AND gate (every B kernel must
-     launch), each gate's time and the AND gate's idle share.
+     launch), each gate's time and the AND gate's idle share;
+  7. homomorphic PRINCE (cuhe_tpu_torch/models/prince.py): (a) the light
+     ring CuDHS(5, 2, 16, 50, 25, 8191, seed=13), card == CPU through S-box
+     layer 1, rounds 0 and 1 right, checkpoint after layer 1 and resume
+     bit-equal (`prince_light`); (b) Prince(seed=7) at the full
+     CuDHS(25, 2, 16, 25, 25, 21845): keygen timed by phase, then the
+     known-answer circuit through all 12 S-box layers, each layer's time,
+     launches (every B kernel in every layer), peak memory and decrypt,
+     rounds 0-3 and the final state against the published vectors
+     (`prince_full`).
 Every kernel time is held against its bound: a time under it fails the run.
 It prints a `kernels` JSON line, the card's name and power limit, and last
 {"ok": true, "device": {...}}.  It needs one card and no network.
@@ -190,6 +201,82 @@ def dhs_shapes(dev, card, compare, rand_u32, rand_pair) -> None:
                                           t.m_words))
     del ctx, ek, x, xp, ce
     torch.cuda.empty_cache()
+
+
+def prince_shapes(dev, card, compare, rand_u32, rand_pair) -> None:
+    """Phase 2 at the shapes only the PRINCE circuit gives the kernels
+    (CuDHS(25, 2, 16, 25, 25, 21845), n = 32768): relinearization of the 64
+    ciphertexts of level 1 (38 digits, 24 of the keys' 25 planes), whose
+    digit NTTs (64 x 38 x 32768 x 8 B) exceed DIGIT_SCRATCH_BYTES, so the
+    front end runs them in chunks, each multiply-accumulate adding the
+    previous chunk's partial; and B1, B2, B3 at the deepest levels' 2 and 1
+    primes (ICRT words at levels 23 and 24), on the 64-ciphertext state."""
+    import torch
+    from cuhe_tpu_torch import entry as port_entry
+    from cuhe_tpu_torch import hostmath as hm
+    from cuhe_tpu_torch.ops import crt, modp
+    from cuhe_tpu_torch.ops import ntt_kernels as nk
+    from cuhe_tpu_torch.ops.relin import digit_chunk, relinearize
+    from cuhe_tpu_torch.params import make_params
+
+    pr = make_params(*port_entry.PRINCE_PARAMS)
+    n, w, batch = pr.ntt_len, pr.log_relin, 64
+    knum, pn, words = (pr.num_eval_key_lvl(1), pr.num_crt_prime_lvl(1),
+                       pr.words_coeff(1))
+    c = digit_chunk(batch, n, knum)
+    chunks = [(j, min(c, knum - j)) for j in range(0, knum, c)]
+    if len(chunks) < 2:
+        raise AssertionError(f"prince level 1: {knum} digits in one chunk")
+    raw = rand_u32((batch, words, n // 2))
+    ek = rand_pair((pr.num_eval_key, pr.num_crt_prime, n))
+    tag = (f"prince lvl 1, {batch} ciphertexts, {knum} digits in chunks "
+           f"{chunks}, {pn} of {pr.num_crt_prime} planes")
+    acc = None
+    for j0, cc in chunks:
+        dig = nk.ntt_fwd_digits(raw, n, w=w, j0=j0, c=cc)
+        compare("ntt_fwd_digits", f"{tag}: digits {j0}..{j0 + cc - 1}",
+                lambda: dig,
+                lambda: nk.ntt_fwd_digits_plain(raw, n, w=w, j0=j0, c=cc))
+        prev = acc
+        acc = nk.relin_mulacc(dig, ek, j0=j0, pnum=pn, acc=prev)
+        compare("relin_mulacc", f"{tag}: digits {j0}..{j0 + cc - 1}"
+                + (" + partial" if prev is not None else ""),
+                lambda: acc,
+                lambda: nk.relin_mulacc_plain(dig, ek, j0=j0, pnum=pn,
+                                              acc=prev))
+        del dig
+    compare("relinearize", tag,
+            lambda: relinearize(raw, *ek, w=w, knum=knum, pnum=pn, n=n),
+            lambda: relinearize(raw, *ek, w=w, knum=knum, pnum=pn, n=n,
+                                digits_mulacc=nk.relin_digits_mulacc_plain))
+    del raw, ek, acc
+    torch.cuda.empty_cache()
+    primes = [int(v) for v in pr.crt_primes]
+    for lvl in (pr.depth - 2, pr.depth - 1):
+        pn, words = pr.num_crt_prime_lvl(lvl), pr.words_coeff(lvl)
+        q, mi, bi = pr.icrt_consts(lvl)
+
+        def u32(vals):
+            return modp.to_u32(torch.tensor(vals, dtype=torch.int64,
+                                            device=dev))
+
+        p_u32 = u32(primes[:pn])
+        icrt_args = (p_u32, u32(list(bi)),
+                     u32([hm.ints_to_words([v], words)[:, 0].tolist()
+                          for v in mi]),
+                     u32(hm.ints_to_words([q], words)[:, 0].tolist()))
+        tag = f"prince lvl {lvl}, {pn} primes, {words} ICRT words, x{batch}"
+        x = rand_u32((batch, pn, n // 2))
+        xp = rand_pair((batch, pn, n))
+        ce = modp.to_u32(torch.remainder(modp.to_i64(x),
+                                         modp.to_i64(p_u32)[:, None]))
+        compare("ntt_fwd", tag, lambda: nk.fwd_linear(x, n),
+                lambda: nk.fwd_linear_plain(x, n))
+        compare("ntt_inv_modcrt", tag, lambda: nk.inv_linear(xp, n, p_u32),
+                lambda: nk.inv_linear_plain(xp, n, p_u32))
+        compare("icrt", tag, lambda: crt.icrt_to_raw(ce, *icrt_args),
+                lambda: crt.icrt_to_raw_plain(ce, *icrt_args))
+    log(f"[kernel] prince shapes: every B kernel bit-exact [{card}]")
 
 
 class CallTimer:
@@ -379,6 +466,192 @@ def dhs_scheme(dev, card) -> None:
         + f" [{card}]")
     profile_step(and_gate, gate_ms["and -> relin -> modSwitch"], card,
                  "one simple_dhs AND -> relin -> modSwitch, batch 1")
+
+
+LIGHT_PRINCE = (5, 2, 16, 50, 25, 8191)  # tests/test_prince.py's light ring
+KAT_BITS = ([0] * 64, [1] * 64, [0] * 64)  # A, B, C of Prince.cu:68-96
+
+
+def prince_light(dev, card) -> None:
+    """Phase 7 (a), the light ring CuDHS(5, 2, 16, 50, 25, 8191, seed=13):
+    the same seed gives the card and the CPU the same key strings and
+    ciphertexts, and S-box layer 1 the same state, bit for bit, decrypting
+    to the round-0 vector; a straight run of two layers on the card, saved
+    after layer 1, and a Prince of the same seed resumed from that file give
+    the same layer 2, which decrypts to the round-1 vector."""
+    import tempfile
+
+    import torch
+    from cuhe_tpu_torch.dhs import CuDHS
+    from cuhe_tpu_torch.models.prince import Prince
+    from cuhe_tpu_torch.utils import checkpoint as ckpt
+
+    def prince(device):
+        return Prince(dhs=CuDHS(*LIGHT_PRINCE, seed=13, device=device))
+
+    def same(a, b):
+        return a.shape == b.shape and torch.equal(
+            a.cpu().view(torch.int32), b.cpu().view(torch.int32))
+
+    def expect(p, state, lvl, rd, tag):
+        bits = "".join(map(str, p.decrypt_state(state, lvl)))
+        if bits != Prince.EXPECTED_ROUNDS[rd]:
+            raise AssertionError(f"light PRINCE {tag}: round {rd} decrypts "
+                                 f"to {bits}")
+
+    t0 = time.perf_counter()
+    cpu = prince("cpu")
+    want = cpu.encrypt_blocks(*KAT_BITS, max_rounds=1)
+    cpu_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    gpu = prince(dev)
+    if gpu.dhs.get_private_key() != cpu.dhs.get_private_key():
+        raise AssertionError("light PRINCE: card and CPU key strings differ")
+    layers = {}
+    build = Path(__file__).resolve().parent / "cuhe_tpu_torch" / "_build"
+    build.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build) as tmp:
+        path = str(Path(tmp) / "layer01.npz")
+
+        def on_layer(done, state, lvl):
+            layers[done] = (state, lvl)
+            if done == 1:
+                ckpt.save_state(path, state, lvl, done=done)
+
+        got = gpu.encrypt_blocks(*KAT_BITS, max_rounds=2, on_layer=on_layer)
+        torch.cuda.synchronize()
+        gpu_s = time.perf_counter() - t0
+        if not same(layers[1][0], want) or layers[1][1] != cpu.level:
+            raise AssertionError("light PRINCE: card and CPU layer 1 differ")
+        expect(gpu, *layers[1], 0, "card")
+        expect(gpu, got, gpu.level, 1, "card")
+        state, lvl = ckpt.load_state(path, device=dev)
+        again = prince(dev).encrypt_blocks(
+            *KAT_BITS, max_rounds=2, resume=(state, lvl, 1))
+    if not same(again, got):
+        raise AssertionError("light PRINCE: resumed layer 2 != straight run")
+    log(f"[prince] light CuDHS{LIGHT_PRINCE}: keys, ciphertexts and S-box "
+        f"layer 1 on the card == on the CPU ({cpu_s:.1f} s with keygen on "
+        f"the CPU, {gpu_s:.1f} s for 2 layers with keygen on the card); "
+        f"rounds 0 and 1 decrypt right; saved after layer 1 and resumed, "
+        f"layer 2 is bit-equal [{card}]")
+
+
+def prince_full(dev, card) -> None:
+    """Phase 7 (b), the PRINCE ring CuDHS(25, 2, 16, 25, 25, 21845) on the
+    card: keygen timed by phase, with its peak memory; then the known-answer
+    circuit, all 12 S-box layers, each decrypted and held against the
+    published vector where there is one (rounds 0-3) and the final state
+    against EXPECTED_FINAL.  One line per layer: its levels, time, each
+    kernel's launches (every B kernel must launch in every layer), peak
+    memory and decrypt time; then the circuit's totals."""
+    import torch
+    from cuhe_tpu_torch import dhs as port_dhs
+    from cuhe_tpu_torch import hostlib, poly
+    from cuhe_tpu_torch.models.prince import Prince
+    from cuhe_tpu_torch.ops import _cuda
+
+    timer = CallTimer([(port_dhs, "Context"), (hostlib, "poly_inv_batch"),
+                       (port_dhs.CuDHS, "_find_inverse"),
+                       (poly, "poly_mul_ints"), (port_dhs.CuDHS, "_gen_ek"),
+                       (port_dhs.CuDHS, "init_relinearization"),
+                       (port_dhs.CuDHS, "_setup_batcher")])
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with timer:
+        p = Prince(seed=7, device=dev)
+        torch.cuda.synchronize()
+    keygen_s = time.perf_counter() - t0
+    sec = timer.seconds
+    phases = {
+        "context": sec["cuhe_tpu_torch.dhs.Context"],
+        "native XGCD": sec["cuhe_tpu_torch.hostlib.poly_inv_batch"],
+        "CRT combine of f^-1": (sec["CuDHS._find_inverse"]
+                                - sec["cuhe_tpu_torch.hostlib.poly_inv_batch"]),
+        "pk product": sec["cuhe_tpu_torch.poly.poly_mul_ints"],
+        "eval keys": (sec["CuDHS._gen_ek"]
+                      - sec["CuDHS.init_relinearization"]),
+        "init_relinearization": sec["CuDHS.init_relinearization"],
+        "batcher": sec["CuDHS._setup_batcher"],
+    }
+    pr = p.ctx.params
+    ek = p.ctx.ek_ntt
+    log(f"[prince] keygen CuDHS(25,2,16,25,25,21845) {keygen_s:.2f} s: "
+        + ", ".join(f"{k} {v:.2f} s" for k, v in phases.items())
+        + f"; {pr.num_eval_key} eval keys {2 * ek[0].numel() * 4 / 1e6:.1f} "
+        f"MB; peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
+        f"[{card}]")
+
+    sbox = p.sbox_layer
+    layer = {}
+    first = {}
+
+    def timed_sbox(state, inverse=False):
+        lvl = p.level
+        first.setdefault("state", state)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _cuda.reset_launches()
+        t = time.perf_counter()
+        out = sbox(state, inverse=inverse)
+        torch.cuda.synchronize()
+        layer.update(ms=(time.perf_counter() - t) * 1e3, lvl=lvl,
+                     inverse=inverse, launches=dict(_cuda.LAUNCHES),
+                     peak=torch.cuda.max_memory_allocated())
+        return out
+
+    p.sbox_layer = timed_sbox
+    rows = []
+
+    def check(rd, state, lvl):
+        t = time.perf_counter()
+        bits = "".join(map(str, p.decrypt_state(state, lvl)))
+        dec_s = time.perf_counter() - t
+        want = Prince.EXPECTED_ROUNDS.get(rd)
+        verdict = "no published vector" if want is None else "OK"
+        launches = layer["launches"]
+        log(f"[prince] layer {len(rows) + 1} (round {rd}, "
+            f"{'inverse' if layer['inverse'] else 'forward'}): level "
+            f"{layer['lvl']} -> {lvl}, {pr.num_crt_prime_lvl(layer['lvl'])} "
+            f"-> {pr.num_crt_prime_lvl(lvl)} primes, {layer['ms']:.1f} ms, "
+            f"launches {launches}, peak {layer['peak'] / 2**30:.2f} GiB, "
+            f"decrypt {dec_s:.2f} s, {bits} {verdict} [{card}]")
+        if want is not None and bits != want:
+            raise AssertionError(f"PRINCE round {rd}: {bits} != {want}")
+        for name in ("ntt_fwd", "ntt_inv_modcrt", "icrt", "ntt_fwd_digits",
+                     "relin_mulacc"):
+            if launches.get(name, 0) < 1:
+                raise AssertionError(f"PRINCE layer {len(rows) + 1}: {name} "
+                                     f"not launched")
+        rows.append((layer["ms"], dec_s, launches, layer["peak"]))
+
+    t0 = time.perf_counter()
+    state = p.run_known_answer(check=check)
+    torch.cuda.synchronize()
+    total_s = time.perf_counter() - t0
+    t = time.perf_counter()
+    bits = "".join(map(str, p.decrypt_state(state, p.level)))
+    final_dec_s = time.perf_counter() - t
+    if len(rows) != 12 or bits != Prince.EXPECTED_FINAL:
+        raise AssertionError(f"PRINCE final state, {len(rows)} layers: {bits} "
+                             f"!= {Prince.EXPECTED_FINAL}")
+    launches = {}
+    for _, _, row, _ in rows:
+        for k, v in row.items():
+            launches[k] = launches.get(k, 0) + v
+    layers_ms = sum(r[0] for r in rows)
+    decrypt_s = sum(r[1] for r in rows)
+    log(f"[prince] known answer: 12 S-box layers decrypt to the final "
+        f"vector {bits} (EXPECTED_FINAL, level {p.level}) in {total_s:.2f} s "
+        f"(S-box layers {layers_ms / 1e3:.3f} s, per-layer decrypts "
+        f"{decrypt_s:.2f} s, the rest -- encryption of message and keys, "
+        f"linear layers -- {total_s - layers_ms / 1e3 - decrypt_s:.2f} s); "
+        f"final decrypt {final_dec_s:.2f} s; launches in the 12 layers "
+        f"{launches}; peak of a layer "
+        f"{max(r[3] for r in rows) / 2**30:.2f} GiB [{card}]")
+    # where the time of the costliest layer (level 0, 25 primes) goes
+    profile_step(lambda: p._sbox(first["state"], 0, False), rows[0][0], card,
+                 "S-box layer 1 (level 0 -> 2)")
 
 
 def main() -> int:
@@ -736,6 +1009,7 @@ def main() -> int:
         torch.cuda.empty_cache()
 
     dhs_shapes(dev, card, compare, rand_u32, rand_pair)
+    prince_shapes(dev, card, compare, rand_u32, rand_pair)
 
     # ---- 3. entry configuration: card == CPU ------------------------------
     step_cpu, args_cpu = port_entry.entry(device="cpu")
@@ -797,6 +1071,12 @@ def main() -> int:
     t0 = time.perf_counter()
     dhs_scheme(dev, card)
     log(f"[dhs] phase 6 in {time.perf_counter() - t0:.1f} s")
+
+    # ---- 7. homomorphic PRINCE ----------------------------------------------
+    t0 = time.perf_counter()
+    prince_light(dev, card)
+    prince_full(dev, card)
+    log(f"[prince] phase 7 in {time.perf_counter() - t0:.1f} s")
 
     sources = {"ntt_fwd": ("cuhe_tpu_torch/csrc/ntt.cu",
                            "cuhe_tpu/ops/ntt_kernels.py:330"),

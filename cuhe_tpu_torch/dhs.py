@@ -19,8 +19,8 @@ import math
 import numpy as np
 import torch
 
+from . import hostlib, poly
 from . import hostmath as hm
-from . import poly
 from .context import Context, resolve_device
 from .params import make_params
 from .serialize import Picklable, PicklableMap
@@ -190,33 +190,28 @@ class CuDHS:
         """f^-1 mod (q0, m(x)) via per-CRT-prime XGCD + CRT combine.
 
         Replaces NTL ZZ_pE inv (DHS.cu:377-393): q0 is composite, so invert
-        modulo each prime factor and CRT-combine coefficients.  The inverse
-        is unique, so this equals the JAX package's, whichever of its two
-        XGCD routes (numpy or its native library) that one took.
+        modulo each prime factor (the native `hostlib.poly_inv_batch`, on
+        every device) and CRT-combine coefficients.  The inverse is unique,
+        so this equals the JAX package's, whichever of its two XGCD routes
+        (numpy or its native library) that one took.
         """
         pr = self.params
         primes = pr.crt_primes
         n = pr.mod_len
-        res = []
-        for p in primes:
-            inv = hm.poly_xgcd_mod_p(np.array(f, dtype=object) % p,
-                                     np.array(self.poly_mod, dtype=object) % p,
-                                     p)
-            if inv is None:
-                return None
-            res.append(np.asarray(inv, dtype=np.int64))
-        # CRT-combine coefficient-wise
+        f = list(f[:n]) + [0] * (n - len(f))
+        fs = np.array([[c % p for c in f] for p in primes], dtype=np.int64)
+        ms = np.array([[c % p for c in self.poly_mod] for p in primes],
+                      dtype=np.int64)
+        res, ok = hostlib.poly_inv_batch(fs, ms, np.array(primes,
+                                                          dtype=np.int64))
+        if (ok != 0).any():
+            return None
+        # CRT-combine coefficient-wise: sum_i (r_i b_i mod p_i) M/p_i mod M
         M = self.coeff_mod[0]
         mi = [M // p for p in primes]
-        bi = [hm.modinv(mi[i] % primes[i], primes[i]) for i in range(len(primes))]
-        out = []
-        for j in range(n):
-            acc = 0
-            for i, p in enumerate(primes):
-                r = int(res[i][j]) if j < len(res[i]) else 0
-                acc += (r * bi[i] % p) * mi[i]
-            out.append(acc % M)
-        return out
+        terms = [(res[i] * hm.modinv(mi[i] % p, p) % p).tolist()
+                 for i, p in enumerate(primes)]
+        return [sum(t * m for t, m in zip(col, mi)) % M for col in zip(*terms)]
 
     def key_gen(self):
         pr = self.params

@@ -79,6 +79,12 @@ def power_words(n: int, inverse: bool, device: str):
     return t & modp.M32, (t >> 32) & modp.M32
 
 
+# Rows per block of `dft64` on the CPU: the transforms are independent, and
+# a block whose temporaries (2 MB each at 16k) stay in the CPU's caches
+# runs faster there than one pass over hundreds of rows.
+CPU_ROWS = 16
+
+
 def dft64(lo, hi, n: int, inverse: bool = False, length: int | None = None):
     """Length-L DFTs of int64 word pairs [B, L] in natural order (radix-2
     DIT), L = `length` (default n), with the root w^(n/L) of the length-n
@@ -86,11 +92,16 @@ def dft64(lo, hi, n: int, inverse: bool = False, length: int | None = None):
     split of n take L = n1 or n2.
 
     Returns the pair in natural (std) NTT index order.  Never forms more than
-    a few [B, L] temporaries.
+    a few [B, L] temporaries (on the CPU, [CPU_ROWS, L]).
     """
     L = n if length is None else length
     if L & (L - 1) or not 1 <= L <= n:
         raise ValueError(f"bad DFT length {L} for n = {n}")
+    if lo.device.type == "cpu" and lo.shape[0] > CPU_ROWS:
+        parts = [dft64(lo[i: i + CPU_ROWS], hi[i: i + CPU_ROWS], n, inverse, L)
+                 for i in range(0, lo.shape[0], CPU_ROWS)]
+        return (torch.cat([v[0] for v in parts]),
+                torch.cat([v[1] for v in parts]))
     rev = bitrev_index(L, str(lo.device))
     tw_lo, tw_hi = power_words(n, inverse, str(lo.device))
     lo, hi = lo[:, rev], hi[:, rev]

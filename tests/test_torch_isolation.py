@@ -11,8 +11,9 @@ from pathlib import Path
 import pytest
 import torch
 
-from cuhe_tpu_torch import api, context, entry
+from cuhe_tpu_torch import api, context, entry, run_prince
 from cuhe_tpu_torch.dhs import CuDHS
+from cuhe_tpu_torch.models.prince import Prince
 from cuhe_tpu_torch.ops import _cuda
 from cuhe_tpu_torch.ops import ntt_kernels as nk
 from cuhe_tpu_torch.params import make_params
@@ -43,6 +44,17 @@ def test_no_file_imports_jax_or_cuhe_tpu():
             assert not bad, f"{path.relative_to(REPO)} imports {bad}"
         # nor loads the JAX package's native library
         assert "libcuhe_host" not in path.read_text(), path
+
+
+def test_host_sources_name_no_file_of_the_jax_package():
+    """The port's C++ host sources are its own: they name no file of
+    native/ and not the JAX package's host library."""
+    sources = sorted((REPO / "cuhe_tpu_torch" / "csrc").rglob("*.cpp"))
+    assert sources
+    for path in sources:
+        text = path.read_text()
+        assert "native/" not in text, path
+        assert "libcuhe_host" not in text, path
 
 
 def test_importing_the_port_loads_neither_jax_nor_cuhe_tpu():
@@ -101,3 +113,11 @@ def test_front_ends_take_only_cpu_or_cuda_tensors():
         nk.fwd_linear(meta, n)
     with pytest.raises(ValueError, match="CUDA"):
         _cuda.check(torch.zeros(4, dtype=torch.uint32), "x", torch.uint32)
+
+
+def test_prince_entry_points_without_a_card_raise(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no card"):
+        Prince(seed=7)
+    with pytest.raises(RuntimeError, match="no card"):
+        run_prince.main(["--rounds", "1"])
