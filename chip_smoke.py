@@ -7,9 +7,11 @@ circuit on one NVIDIA H100.
 Phases (any failure ends the run with a non-zero exit and no result line):
   1. build the CUDA kernels of cuhe_tpu_torch/csrc with nvcc (sm_90a), read
      the SASS instructions per product of the multiply-accumulate's digit
-     loop and per prime of the ICRT's loop, and measure the card's integer
-     multiply rates (csrc/calib.cu), which the operation side of each
-     kernel's bound uses, and the SM clock under load;
+     loop and per prime of the ICRT's loop, and the wgmma and TMA load
+     instructions in the loops of P1's dot kernels (none fails the run),
+     and measure the card's integer multiply rates (csrc/calib.cu), which
+     the operation side of each kernel's bound uses, and the SM clock under
+     load;
   2. hold every kernel bit for bit against its plain PyTorch version on the
      card, and time both (CUDA events, median after warm-up) at the gate
      step's shapes, with each kernel's resident blocks per SM; the NTTs also
@@ -33,8 +35,11 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      counts of one batch-32 step (the main path), its time and peak memory,
      and the device time of each kernel in it (torch.profiler);
   5. the probes (cuhe_tpu_torch/probes, `python3 -m cuhe_tpu_torch.probes`):
-     every probe kernel and NTT pass against its plain version on the card,
-     then the probe run, with its own launch counts: tensor-core dots (P1),
+     every probe kernel and NTT pass against its plain version on the card
+     (P1's TMA + wgmma dot at 16 extra shapes and fills: the 128-wide tile,
+     K tails, 1 and 3 copies, int8 extremes, bf16 mixed exponents),
+     then the probe run, with its own launch counts: tensor-core dots (P1)
+     and their two stop points (TMA ring only, wgmma only),
      add / xor / shift (P2), the NTT passes at the TPU stage ablations'
      points (P3, P4) and at PRINCE level 0's shapes, each timed output
      held against its plain version's;
@@ -695,6 +700,9 @@ def main() -> int:
     loop = probe_calib.sass_loop(sass, "icrt_kernelILi20E", "IMAD.WIDE")
     log(f"[sass] icrt (20 words) prime loop: {sum(loop.values())} "
         f"instructions per prime; {dict(loop.most_common(8))}")
+    # P1's dot kernels: wgmma (HGMMA / IGMMA) in the consumers' loop and TMA
+    # loads (UTMALDG) in the producer's; raises if either is missing
+    log(f"[sass] P1 dot kernels' loops: {probe_calib.dot_sass_counts(sass)}")
     del sass
     clock = probe_calib.sample_sm_clock(dev)
     rates = probe_calib.mul_rates(dev)

@@ -57,8 +57,10 @@ _SIGNATURES = {
     "cuhe_icrt_blocks_per_sm": "ii",
     # rate probes (probes/calib.py)
     "cuhe_probe_alu": "pp" + "iii",
-    "cuhe_probe_dot_s8": "ppp" + "iiii",
-    "cuhe_probe_dot_bf16": "ppp" + "iiii",
+    "cuhe_probe_dot_s8": "pppp" + "iiiiii",
+    "cuhe_probe_dot_bf16": "pppp" + "iiiiii",
+    "cuhe_probe_dot_loads_only": "pppp" + "iiiiiii",
+    "cuhe_probe_dot_mma_only": "pppp" + "iiiiiii",
 }
 
 # Launches per kernel wrapper: each wrapper adds one where it launches its
@@ -147,20 +149,30 @@ def lib() -> ctypes.CDLL:
     return dll
 
 
-def _arg(a):
-    if isinstance(a, torch.Tensor):
-        return ctypes.c_void_p(a.data_ptr())
-    if a is None:
-        return ctypes.c_void_p(None)
-    return int(a)
+def _cargs(args) -> list:
+    """Tensors as their data pointers, ints as ints (None: a null pointer);
+    ctypes converts each by the entry point's argtypes."""
+    return [a.data_ptr() if isinstance(a, torch.Tensor)
+            else None if a is None else int(a) for a in args]
 
 
 def launch(counter: str, fn: str, device: torch.device, *args) -> None:
-    """Call C entry point `fn` on `device`'s current stream; raise on error."""
+    """Call C entry point `fn` on `device`'s current stream; raise on error.
+
+    Every call of a kernel front end pays this host time, and a timed call
+    of a short kernel sees it: the stream comes from PyTorch's raw-stream
+    query, and the device is switched only when it is not the current one.
+    """
     dll = lib()
-    stream = torch.cuda.current_stream(device).cuda_stream
-    with torch.cuda.device(device):
-        rc = getattr(dll, fn)(*map(_arg, args), ctypes.c_void_p(stream))
+    call, cargs = getattr(dll, fn), _cargs(args)
+    current = torch.cuda.current_device()
+    index = current if device.index is None else device.index
+    stream = torch._C._cuda_getCurrentRawStream(index)
+    if index == current:
+        rc = call(*cargs, stream)
+    else:
+        with torch.cuda.device(index):
+            rc = call(*cargs, stream)
     if rc != 0:
         raise RuntimeError(
             f"{fn}: CUDA error {rc}: {dll.cuhe_error_string(rc).decode()}")
@@ -172,7 +184,7 @@ def query(fn: str, device: torch.device, *args) -> int:
     return its non-negative result; raise on a negative one (a CUDA error)."""
     dll = lib()
     with torch.cuda.device(device):
-        rc = getattr(dll, fn)(*map(_arg, args), ctypes.c_void_p(None))
+        rc = getattr(dll, fn)(*_cargs(args), None)
     if rc < 0:
         raise RuntimeError(
             f"{fn}: CUDA error {-rc}: {dll.cuhe_error_string(-rc).decode()}")

@@ -3,14 +3,18 @@ integer multiply rates behind the kernels' bounds, and the SM clock.
 
 Counterpart of ``scripts/tpu_probe_calib.py``:
   * `dot` (kernel ``csrc/probe_dot.cu``) is ``bench_dot``'s ``dot_kernel``:
-    ``x @ w`` for int8 -> int32 and bf16 -> f32, recomputed ``grid`` times;
+    ``x @ w`` for int8 -> int32 and bf16 -> f32, recomputed ``grid`` times,
+    by a persistent TMA + wgmma kernel whose tile width and block count
+    `dot_launch_config` picks; `dot_stop` runs its two stop points (the TMA
+    ring alone, the wgmma loop alone);
   * `alu` (kernel ``csrc/probe_alu.cu``) is ``bench_vpu``'s ``vpu_kernel``:
     ``y = x``, then ``reps`` times ``y = (y + x) ^ (y >> 3)`` over uint32;
   * `mul_rates` (kernel ``csrc/calib.cu``) measures the 64x64->128 and
     32x32->64 multiply rates, the multiply half of ``bench_vpu``.
 Each front end launches its kernel for a CUDA tensor and runs its plain
-PyTorch version (`dot_plain`, `alu_plain`) for a CPU tensor; the rate
-functions (`dot_rate`, `alu_rate`, `mul_rates`, `sample_sm_clock`) run on
+PyTorch version (`dot_plain`, `dot_stop_plain`, `alu_plain`) for a CPU
+tensor; the rate functions (`dot_rate`, `dot_stop_rate`, `alu_rate`,
+`mul_rates`, `sample_sm_clock`) run on
 the card only, raise without one, and raise if the kernel's output at the
 timed shape differs from the plain version's.
 """
@@ -19,6 +23,7 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import functools
 import math
 import re
 import subprocess
@@ -30,7 +35,7 @@ import torch
 from ..ops import _cuda, modp
 from ..ops.ntt_kernels import _is_cpu
 from .timing import (PLAIN_REPS, REPS, TENSOR_OPS_PER_S, bound, cuda_ms,
-                     cuda_ms_out, require_card)
+                     cuda_ms_burst, cuda_ms_out, require_card)
 
 # bench_dot's shapes (m, k, n) and grid, bench_vpu's shapes, reps and grid
 DOT_SHAPES = ((1024, 128, 1024), (1024, 1024, 1024), (128, 128, 128))
@@ -58,6 +63,10 @@ SOURCES = {
                      "scripts/tpu_probe_calib.py:52"),
     "probe_dot_bf16": ("cuhe_tpu_torch/csrc/probe_dot.cu",
                        "scripts/tpu_probe_calib.py:52"),
+    "probe_dot_loads_only": ("cuhe_tpu_torch/csrc/probe_dot.cu",
+                             "scripts/tpu_probe_calib.py:52"),
+    "probe_dot_mma_only": ("cuhe_tpu_torch/csrc/probe_dot.cu",
+                           "scripts/tpu_probe_calib.py:52"),
     "probe_alu": ("cuhe_tpu_torch/csrc/probe_alu.cu",
                   "scripts/tpu_probe_calib.py:87"),
 }
@@ -67,11 +76,41 @@ _DOT_KERNELS = {  # input dtype -> (counter, C entry point, output dtype)
     torch.bfloat16: ("probe_dot_bf16", "cuhe_probe_dot_bf16", torch.float32),
 }
 DOT_COUNTERS = {"int8": "probe_dot_s8", "bf16": "probe_dot_bf16"}
+# P1's stop points (csrc/probe_dot.cu): the TMA ring without wgmma, and the
+# wgmma loop on one resident stage without loads; stop -> counter
+DOT_STOPS = {"loads_only": "probe_dot_loads_only",
+             "mma_only": "probe_dot_mma_only"}
+
+# the dot kernel's tile: 128 rows of out by DOT_BN columns (256 where n
+# allows, else 128)
+DOT_BM = 128
+DOT_BN = (256, 128)
 
 
 # ---------------------------------------------------------------------------
 # P1: tensor-core dot (replaces scripts/tpu_probe_calib.py::bench_dot)
 # ---------------------------------------------------------------------------
+
+def dot_launch_config(m: int, n: int, grid: int, sms: int) -> dict:
+    """The dot kernel's launch for out [m, n] computed `grid` times on a card
+    of `sms` SMs: the tile width bn (256 where n % 256 == 0, else 128), the
+    units (one per copy and 128 x bn tile), and the persistent blocks,
+    min(sms, units), each walking units block, block + blocks, ..."""
+    bn = next(b for b in DOT_BN if n % b == 0)
+    tiles = (m // DOT_BM) * (n // bn)
+    units = grid * tiles
+    return {"bn": bn, "tiles": tiles, "units": units,
+            "blocks": min(sms, units)}
+
+
+def dot_unit(u: int, cfg: dict, n: int) -> tuple[int, int, int]:
+    """Unit u of a launch as the kernel reads it: (copy, first row, first
+    column) of its tile of out."""
+    tile = u % cfg["tiles"]
+    tiles_n = n // cfg["bn"]
+    return (u // cfg["tiles"], tile // tiles_n * DOT_BM,
+            tile % tiles_n * cfg["bn"])
+
 
 @contextlib.contextmanager
 def _full_fp32():
@@ -96,18 +135,18 @@ def dot_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     raise TypeError(f"dot takes int8 or bfloat16, got {x.dtype}")
 
 
-def dot(x: torch.Tensor, w: torch.Tensor, *, grid: int = 1) -> torch.Tensor:
-    """x @ w for x [m, k], w [k, n]: int8 -> int32 or bf16 -> float32.
+@functools.lru_cache(maxsize=None)
+def _sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
-    On the card the kernel computes the product `grid` times (the probe's
-    repeated block) and needs m, n multiples of 128 and k * itemsize a
-    multiple of 64."""
-    if _is_cpu(x):
-        return dot_plain(x, w)
+
+def _dot_args(x, w, grid):
+    """Check a kernel call's operands; returns (m, k, n, out dtype, launch
+    config, w^T scratch)."""
     if x.dtype not in _DOT_KERNELS:
         raise TypeError(f"dot takes int8 or bfloat16, got {x.dtype}")
-    counter, fn, out_dtype = _DOT_KERNELS[x.dtype]
-    _cuda.check(x, "x", x.dtype)
+    # TMA reads x and w^T from 16-byte aligned rows
+    _cuda.check(x, "x", x.dtype, align=16)
     _cuda.check(w, "w", x.dtype, device=x.device)
     (m, k), (k2, n) = x.shape, w.shape
     if k2 != k:
@@ -117,8 +156,50 @@ def dot(x: torch.Tensor, w: torch.Tensor, *, grid: int = 1) -> torch.Tensor:
                          f"k * itemsize of 64, got ({m}, {k}, {n})")
     if not 1 <= grid <= 65535:
         raise ValueError(f"grid {grid} out of range")
+    wt = torch.empty((n, k), dtype=x.dtype, device=x.device)
+    return (m, k, n, _DOT_KERNELS[x.dtype][2],
+            dot_launch_config(m, n, grid, _sms(x.device.index)), wt)
+
+
+def dot(x: torch.Tensor, w: torch.Tensor, *, grid: int = 1) -> torch.Tensor:
+    """x @ w for x [m, k], w [k, n]: int8 -> int32 or bf16 -> float32.
+
+    On the card the kernel computes the product `grid` times (the probe's
+    repeated block) and needs m, n multiples of 128 and k * itemsize a
+    multiple of 64."""
+    if _is_cpu(x):
+        return dot_plain(x, w)
+    m, k, n, out_dtype, cfg, wt = _dot_args(x, w, grid)
+    counter, fn, _ = _DOT_KERNELS[x.dtype]
     out = torch.empty((m, n), dtype=out_dtype, device=x.device)
-    _cuda.launch(counter, fn, x.device, x, w, out, m, k, n, grid)
+    _cuda.launch(counter, fn, x.device, x, w, wt, out, m, k, n, grid,
+                 cfg["bn"], cfg["blocks"])
+    return out
+
+
+def dot_stop_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Plain version of `dot_stop`: the stop points compute no product and
+    write zeros of the output's type."""
+    if x.dtype not in _DOT_KERNELS:
+        raise TypeError(f"dot takes int8 or bfloat16, got {x.dtype}")
+    return torch.zeros((x.shape[0], w.shape[1]),
+                       dtype=_DOT_KERNELS[x.dtype][2], device=x.device)
+
+
+def dot_stop(x: torch.Tensor, w: torch.Tensor, stop: str, *,
+             grid: int = 1) -> torch.Tensor:
+    """`dot`'s kernel stopped at `stop` ("loads_only": the TMA ring and its
+    barriers, no wgmma; "mma_only": the wgmma loop on one resident zeroed
+    stage, no loads), with `dot`'s contract; returns its output, zeros."""
+    if stop not in DOT_STOPS:
+        raise ValueError(f"unknown stop point {stop}")
+    if _is_cpu(x):
+        return dot_stop_plain(x, w)
+    m, k, n, out_dtype, cfg, wt = _dot_args(x, w, grid)
+    out = torch.empty((m, n), dtype=out_dtype, device=x.device)
+    _cuda.launch(DOT_STOPS[stop], f"cuhe_probe_dot_{stop}", x.device, x, w,
+                 wt, out, m, k, n, grid, cfg["bn"], cfg["blocks"],
+                 int(x.dtype == torch.bfloat16))
     return out
 
 
@@ -145,6 +226,55 @@ def dot_inputs(m: int, k: int, n: int, kind: str, device="cuda"):
     x = torch.from_numpy(rng.standard_normal((m, k)).astype(np.float32))
     w = torch.from_numpy(rng.standard_normal((k, n)).astype(np.float32))
     return x.to(torch.bfloat16).to(device), w.to(torch.bfloat16).to(device)
+
+
+# P1 on the card at shapes `run` does not time (suite.check), held to
+# dot_plain: (tag, kind, m, k, n, grid, fill).  n = 128 and 384 take the
+# 128-wide tile; k * itemsize = 64 and 192 end in a half slice (TMA's zero
+# fill); m = 128 with 1 and 3 copies; int8 operands at the extremes, whose
+# sums of 1024 products (16,777,216, 16,516,096, -16,646,144) are exact in
+# int32; bf16 operands whose exponents run from 2^-30 to 2^30.
+DOT_CHECKS = tuple(
+    [(f"n=128 {kd}", kd, 256, 512, 128, 64, "rand") for kd in ("int8", "bf16")]
+    + [(f"n=384 {kd}", kd, 128, 512, 384, 64, "rand")
+       for kd in ("int8", "bf16")]
+    + [("k tail int8", "int8", 256, 64, 256, 64, "rand"),
+       ("k tail bf16", "bf16", 256, 32, 256, 64, "rand"),
+       ("slice + tail int8", "int8", 256, 192, 512, 8, "rand"),
+       ("slice + tail bf16", "bf16", 256, 96, 512, 8, "rand")]
+    + [(f"m=128 grid {g} {kd}", kd, 128, 256, 256, g, "rand")
+       for g in (1, 3) for kd in ("int8", "bf16")]
+    + [(f"int8 {f}", "int8", 128, 1024, 256, 2, f)
+       for f in ("min", "max", "minmax")]
+    + [("bf16 mixed exponents", "bf16", 256, 1024, 256, 4, "exp")])
+
+
+def dot_check_inputs(kind: str, m: int, k: int, n: int, fill: str,
+                     device="cuda"):
+    """Inputs of a DOT_CHECKS case: "rand" draws int8 over its whole range
+    or standard normal bf16 (rng 7); "min" is x = w = -128, "max" x = w =
+    127, "minmax" x = -128 and w = 127; "exp" draws bf16 sign * [1, 2) *
+    2^e, e uniform in [-30, 30]."""
+    rng = np.random.default_rng(7)
+    if kind == "int8":
+        if fill == "rand":
+            x = rng.integers(-128, 128, size=(m, k)).astype(np.int8)
+            w = rng.integers(-128, 128, size=(k, n)).astype(np.int8)
+        else:
+            vx, vw = {"min": (-128, -128), "max": (127, 127),
+                      "minmax": (-128, 127)}[fill]
+            x = np.full((m, k), vx, np.int8)
+            w = np.full((k, n), vw, np.int8)
+        return torch.from_numpy(x).to(device), torch.from_numpy(w).to(device)
+
+    def draw(shape):
+        if fill == "rand":
+            return rng.standard_normal(shape)
+        sign = rng.choice([-1.0, 1.0], size=shape)
+        return sign * rng.uniform(1, 2, shape) * np.exp2(
+            rng.integers(-30, 31, size=shape))
+    return tuple(torch.from_numpy(draw(s).astype(np.float32))
+                 .to(torch.bfloat16).to(device) for s in ((m, k), (k, n)))
 
 
 def _library_dot(xs, w):
@@ -188,14 +318,56 @@ def dot_rate(m: int, k: int, n: int, kind: str, device="cuda") -> dict:
     err = dot_error(got, want[:m], x, w)
     del want
     library_ms = cuda_ms(lambda: _library_dot(xs, w), REPS)
+    burst_ms = cuda_ms_burst(lambda: dot(x, w, grid=grid))
+    library_burst_ms = cuda_ms_burst(lambda: _library_dot(xs, w))
     ops = 2.0 * m * k * n * grid
     nbytes = (m * k + k * n) * x.element_size() + m * n * 4
     b_ms, b_by = bound(nbytes, {kind: ops}, TENSOR_OPS_PER_S)
     counter = DOT_COUNTERS[kind]
+    cfg = dot_launch_config(m, n, grid,
+                            torch.cuda.get_device_properties(dev)
+                            .multi_processor_count)
     return dict(probe="P1", kernel=counter, shape=f"{m}x{k}x{n} x{grid}",
+                bn=cfg["bn"], blocks=cfg["blocks"], burst_ms=burst_ms,
+                library_burst_ms=library_burst_ms,
                 ms=ms, plain_ms=plain_ms, library_ms=library_ms,
                 bound_ms=b_ms, bound_by=b_by, max_abs_err=err,
                 rate=ops / (ms * 1e-3), peak=TENSOR_OPS_PER_S[kind])
+
+
+def dot_stop_rate(stop: str, kind: str, device="cuda") -> dict:
+    """P1's kernel stopped at `stop` at 1024^3 x DOT_GRID on the card: its
+    time beside the plain version's (zeros; the output is held to it) and
+    its bound: for loads_only the bytes of the product (each input read
+    once, the output written once), for mma_only the operations of the
+    product at the data-sheet peak (and the output's bytes).  `tma_bytes`
+    is what the TMA ring copies into shared memory in one call."""
+    dev = require_card(device)
+    m = k = n = 1024
+    grid = DOT_GRID
+    x, w = dot_inputs(m, k, n, kind, dev)
+    ms, got = cuda_ms_out(lambda: dot_stop(x, w, stop, grid=grid), REPS)
+    plain_ms, want = cuda_ms_out(lambda: dot_stop_plain(x, w), PLAIN_REPS)
+    if not torch.equal(got, want):
+        raise AssertionError(f"P1 {stop} {kind}: kernel != plain (zeros)")
+    burst_ms = cuda_ms_burst(lambda: dot_stop(x, w, stop, grid=grid))
+    ops = 2.0 * m * k * n * grid
+    if stop == "loads_only":
+        nbytes, opc = (m * k + k * n) * x.element_size() + m * n * 4, {}
+    else:
+        nbytes, opc = m * n * 4, {kind: ops}
+    b_ms, b_by = bound(nbytes, opc, TENSOR_OPS_PER_S)
+    cfg = dot_launch_config(m, n, grid,
+                            torch.cuda.get_device_properties(dev)
+                            .multi_processor_count)
+    slices = -(-k * x.element_size() // 128)
+    tma_bytes = cfg["units"] * slices * 128 * (DOT_BM + cfg["bn"])
+    return dict(probe=f"P1 {stop}", kernel=DOT_STOPS[stop], kind=kind,
+                shape=f"{m}x{k}x{n} x{grid}", ms=ms, plain_ms=plain_ms,
+                library_ms=None, bound_ms=b_ms, bound_by=b_by,
+                max_abs_err=0.0, rate=ops / (ms * 1e-3),
+                peak=TENSOR_OPS_PER_S[kind], tma_bytes=tma_bytes,
+                burst_ms=burst_ms)
 
 
 # ---------------------------------------------------------------------------
@@ -259,6 +431,26 @@ def sass_loop(sass: str, kernel: str, most: str = "") -> collections.Counter:
         return collections.Counter(op for _, op, _ in max(
             loops, key=lambda l: sum(op.startswith(most) for _, op, _ in l)))
     raise ValueError(f"no kernel named *{kernel}* in the SASS")
+
+
+def dot_sass_counts(sass: str) -> dict:
+    """Per variant of P1's kernel ("int8 bn=256", ...): the tensor-core
+    instructions (HGMMA for bf16, IGMMA for int8) of its loop with the most
+    of them and the TMA loads (UTMALDG) of its loop with the most of those,
+    from `cuobjdump -sass` text.  Raises if either is zero: then the kernel
+    is not the wgmma / TMA design."""
+    counts = {}
+    for kind, flag, op in (("int8", 0, "IGMMA"), ("bf16", 1, "HGMMA")):
+        for bn in DOT_BN:
+            name = f"dot_kernelILb{flag}ELi{bn}ELi0E"
+            mma, tma = (sum(c for o, c in sass_loop(sass, name, want).items()
+                            if o.startswith(want))
+                        for want in (op, "UTMALDG"))
+            if not mma or not tma:
+                raise AssertionError(f"P1 {kind} bn={bn}: {mma} {op} and "
+                                     f"{tma} UTMALDG in its loops")
+            counts[f"{kind} bn={bn}"] = {op: mma, "UTMALDG": tma}
+    return counts
 
 
 def alu_loop_mix() -> collections.Counter:

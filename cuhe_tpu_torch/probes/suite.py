@@ -6,7 +6,9 @@ one line each, and the probe kernels' entries of the kernels line
 `run` measures, with CUDA-event medians:
   * the SM clock under load and the integer multiply rates (csrc/calib.cu);
   * P1, the tensor-core dot rate, at bench_dot's three shapes in int8 and
-    bf16, beside the plain version and cuBLAS for the same work;
+    bf16, beside the plain version and cuBLAS for the same work, per call
+    and back to back; its two stop points at 1024^3; the wgmma and TMA
+    instructions in its loops (`cuobjdump -sass`);
   * P2, the add / xor / shift rate, at bench_vpu's two shapes, against the
     peak of its kernel's loop as `cuobjdump -sass` shows it;
   * P3 and P4, the inverse and forward NTT stopped at each of the TPU
@@ -22,7 +24,7 @@ from __future__ import annotations
 
 import torch
 
-from ..ops import modp
+from ..ops import _cuda, modp
 from ..ops import ntt_kernels as nk
 from . import ablate, calib
 from .timing import (PLAIN_REPS, REPS, bound, check_bound, cuda_ms_out,
@@ -76,10 +78,20 @@ def _same(tag: str, got, want) -> None:
 def check(device="cuda", log=print) -> None:
     """Hold the probe kernels against their plain versions on the card at
     the shapes `run` does not time (`run` compares every output it times):
-    P2 at a size that is no multiple of a block, and every NTT pass on 8
-    transforms of 16k and of 32k, inv_cols with a prime per transform.
-    Raises on the first mismatch."""
+    P1 at `calib.DOT_CHECKS` (int8 bit for bit, bf16 within
+    `calib.dot_tolerance`), P2 at a size that is no multiple of a block,
+    and every NTT pass on 8 transforms of 16k and of 32k, inv_cols with a
+    prime per transform.  Raises on the first mismatch."""
     dev = require_card(device)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for tag, kind, m, k, n, grid, fill in calib.DOT_CHECKS:
+        x, w = calib.dot_check_inputs(kind, m, k, n, fill, dev)
+        got = calib.dot(x, w, grid=grid)
+        err = calib.dot_error(got, calib.dot_plain(x, w), x, w)
+        cfg = calib.dot_launch_config(m, n, grid, sms)
+        log(f"[probe-check] P1 {tag} {m}x{k}x{n} x{grid} (bn {cfg['bn']}, "
+            f"{cfg['blocks']} blocks): max |kernel - plain| {err:.3e}, "
+            f"within tolerance")
     gen = torch.Generator(device=dev)
     gen.manual_seed(2027)
     x = calib.alu_inputs(3, 1000, dev)
@@ -130,6 +142,9 @@ def run(device="cuda", log=print, rates: dict | None = None,
     def add(rec, line=False):
         check_bound(f"{rec['probe']} {rec['shape']}", rec["ms"],
                     rec["bound_ms"])
+        if "burst_ms" in rec:
+            check_bound(f"{rec['probe']} {rec['shape']} back to back",
+                        rec["burst_ms"], rec["bound_ms"])
         rec["line"] = line
         records.append(rec)
         return rec
@@ -140,12 +155,30 @@ def run(device="cuda", log=print, rates: dict | None = None,
             r = add(calib.dot_rate(m, k, n, kind, device=dev),
                     (m, k, n) == dot_line)
             share = 100 * r["rate"] / r["peak"]
-            log(f"[probe] P1 dot {kind} {r['shape']}: kernel {r['ms']:.4f} ms"
+            log(f"[probe] P1 dot {kind} {r['shape']} (bn {r['bn']}, "
+                f"{r['blocks']} blocks): kernel {r['ms']:.4f} ms"
                 f" = {r['rate'] / 1e12:.2f} T op/s ({share:.2f} %"
                 f" of the data sheet's {r['peak'] / 1e12:.0f} T), cuBLAS "
                 f"{r['library_ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
                 f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}), max "
-                f"|kernel - plain| {r['max_abs_err']:.3e} [{card}]")
+                f"|kernel - plain| {r['max_abs_err']:.3e}; back to back "
+                f"{r['burst_ms']:.4f} ms a call, cuBLAS "
+                f"{r['library_burst_ms']:.4f} [{card}]")
+    for stop in calib.DOT_STOPS:
+        for kind in ("int8", "bf16"):
+            r = add(calib.dot_stop_rate(stop, kind, device=dev),
+                    kind == "int8")
+            log(f"[probe] {r['probe']} {kind} {r['shape']}: kernel "
+                f"{r['ms']:.4f} ms = {r['rate'] / 1e12:.2f} T op/s of the "
+                f"product ({100 * r['rate'] / r['peak']:.2f} % of "
+                f"{r['peak'] / 1e12:.0f} T), TMA {r['tma_bytes'] / 1e9:.3f} GB"
+                f" = {r['tma_bytes'] / (r['ms'] * 1e-3) / 1e12:.2f} TB/s "
+                f"into shared memory, plain (zeros) {r['plain_ms']:.4f} ms, "
+                f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}), output "
+                f"zeros as the plain version's; back to back "
+                f"{r['burst_ms']:.4f} ms a call [{card}]")
+    counts = calib.dot_sass_counts(_cuda.sass())
+    log(f"[probe] P1 loops (cuobjdump -sass): {counts}")
     mix = calib.alu_loop_mix()
     log(f"[probe] P2 loop (cuobjdump -sass): {dict(mix)}; at most "
         f"{calib.alu_peak_per_clock(mix):.2f} results per clock per SM")

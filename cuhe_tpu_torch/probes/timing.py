@@ -72,6 +72,23 @@ def cuda_ms(fn, reps: int, warm: int = 1) -> float:
     return cuda_ms_out(fn, reps, warm)[0]
 
 
+def cuda_ms_burst(fn, calls: int = 50) -> float:
+    """ms per call of `calls` back-to-back calls of fn() between two CUDA
+    events: with the launch queue ahead of the card, the host's time per
+    call hides behind the kernels', so this is the device's time of a call
+    (where the host is faster than the card)."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(calls):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / calls
+
+
 def bound(nbytes: float, ops: dict, rates: dict) -> tuple[float, str]:
     """Least time in ms: the larger of the bytes over the memory rate and
     the operations of each kind over that kind's peak rate (per second)."""

@@ -143,13 +143,23 @@ def test_a_time_under_its_bound_raises():
 # P1: tensor-core dot (bench_dot's dot_kernel)
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("kind", ["int8", "bf16"])
-def test_dot_matches_dot_kernel(scripts, kind):
+# bench_dot's inputs at 128^3, then the shapes and fills that the card's
+# check holds the kernel to (calib.DOT_CHECKS; the grid is the card's only)
+_DOT_CASES = [pytest.param(kind, 128, 128, 128, None, id=kind)
+              for kind in ("int8", "bf16")] + [
+    pytest.param(kind, m, k, n, fill, id=tag.replace(" ", "-"))
+    for tag, kind, m, k, n, grid, fill in calib.DOT_CHECKS]
+
+
+@pytest.mark.parametrize("kind,m,k,n,fill", _DOT_CASES)
+def test_dot_matches_dot_kernel(scripts, kind, m, k, n, fill):
     """int8 bit for bit; bf16 within |got - want| <= k 2^-24 (|x| @ |w|):
     both sides sum exact float32 products of bf16 values in float32, in
     different orders."""
-    m = k = n = 128
-    x, w = calib.dot_inputs(m, k, n, kind, "cpu")
+    if fill is None:
+        x, w = calib.dot_inputs(m, k, n, kind, "cpu")
+    else:
+        x, w = calib.dot_check_inputs(kind, m, k, n, fill, "cpu")
     if kind == "int8":
         jx, jw, acc = jnp.asarray(x.numpy()), jnp.asarray(w.numpy()), jnp.int32
     else:
@@ -166,10 +176,11 @@ def test_dot_matches_dot_kernel(scripts, kind):
     if kind == "int8":
         assert got.dtype == np.int32
         np.testing.assert_array_equal(got, want)
-        # the int8 inputs are the script's, bit for bit
-        rng = np.random.default_rng(0)
-        np.testing.assert_array_equal(
-            x.numpy(), rng.integers(-100, 100, size=(m, k)).astype(np.int8))
+        if fill is None:  # the int8 inputs are the script's, bit for bit
+            rng = np.random.default_rng(0)
+            np.testing.assert_array_equal(
+                x.numpy(),
+                rng.integers(-100, 100, size=(m, k)).astype(np.int8))
     else:
         assert got.dtype == np.float32
         tol = calib.dot_tolerance(x, w).numpy()
