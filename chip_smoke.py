@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's homomorphic gate step, DHS scheme and PRINCE
-circuit on one NVIDIA H100.
+"""Drive the PyTorch port's homomorphic gate step, DHS scheme, PRINCE
+circuit and multi-device step on one NVIDIA H100.
 
     python3 chip_smoke.py
 
@@ -12,7 +12,10 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      and measure the card's integer multiply rates (csrc/calib.cu), which
      the operation side of each kernel's bound uses, and the SM clock under
      load;
-  2. hold every kernel bit for bit against its plain PyTorch version on the
+  2. hold the plain versions' wrapping int64 arithmetic (ops/modp.py:
+     `mul32`, `pack64`, `add_bits64`, `sub_bits64`, `mul_bits64`) against
+     Python ints at the extremes on the card (`modp_wrap_extremes`); hold
+     every kernel bit for bit against its plain PyTorch version on the
      card, and time both (CUDA events, median after warm-up) at the gate
      step's shapes, with each kernel's resident blocks per SM; the NTTs also
      at 16k, 32k and 64k, on inputs made of edge values (0, 1, P-1, 2^32-1,
@@ -26,7 +29,11 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      CuDHS(5, 2, 1, 61, 20, 8191), 1-bit windows over 141 digits, keygen's
      batch of 141; and at the PRINCE circuit's (`prince_shapes`): level 1's
      relinearization of 64 ciphertexts (38 digits in two chunks, 24 of 25
-     planes) and B1, B2, B3 at the deepest levels' 2 and 1 primes;
+     planes) and B1, B2, B3 at the deepest levels' 2 and 1 primes; and at
+     a crt-sharded step's (`shard_shapes`): B3 on subsets of the primes
+     against the global M, B4 on eval-key slices of 13 and 12 planes, B1's
+     column- and row-block passes over 2, 4 and 8 ranks (column blocks of
+     64, 32 and 16);
   3. the entry configuration (16k ring, 4 primes, batch 2): the step on the
      card with the kernels equals the step on the CPU with the plain
      versions (which the tests hold against the JAX package);
@@ -57,7 +64,19 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      known-answer circuit through all 12 S-box layers, each layer's time,
      launches (every B kernel in every layer), peak memory and decrypt,
      rounds 0-3 and the final state against the published vectors
-     (`prince_full`).
+     (`prince_full`);
+  8. parallel (cuhe_tpu_torch/parallel, `parallel_phase`): the device
+     count; the B kernels at a (2, 2) rank's shapes of the PRINCE level-0
+     step and B1's block passes timed against their bounds; then 8 ranks
+     on this card over Gloo (`phase8_rank`): (a) the entry step on meshes
+     (2, 2) and (1, 3) (2 + 1 + 1 planes: the last rank holds only the
+     dropped prime) and (b) the PRINCE level-0 step at batch 32 on (2, 2),
+     each gathered output bit-equal to phases 3 and 4 and every B kernel
+     launched on every rank, with each rank's step time, peak memory,
+     eval-key bytes and time in collectives; (c) one n = 32768 NTT across 8,
+     4 and 2 ranks equal to B1's; (d) NCCL at (1, device count) against the
+     unsharded step where there are two cards or more, else the line
+     `nccl: skipped: one device`.
 Every kernel time is held against its bound: a time under it fails the run.
 It prints a `kernels` JSON line, the card's name and power limit, and last
 {"ok": true, "device": {...}}.  It needs one card and no network.
@@ -282,6 +301,425 @@ def prince_shapes(dev, card, compare, rand_u32, rand_pair) -> None:
         compare("icrt", tag, lambda: crt.icrt_to_raw(ce, *icrt_args),
                 lambda: crt.icrt_to_raw_plain(ce, *icrt_args))
     log(f"[kernel] prince shapes: every B kernel bit-exact [{card}]")
+
+
+def mulacc_model(batch: int, pn: int, n: int, cc: int, with_acc: bool):
+    """(bytes, multiplies) of relin_mulacc over cc digits: the previous
+    partial is read only where one is given."""
+    return ((cc * batch + cc * pn + (2 if with_acc else 1) * batch * pn)
+            * n * 8, {"mul64": cc * batch * pn * n})
+
+
+def step_kernel_models(batch: int, pn: int, n: int, words: int, c: int,
+                       span: int, mi) -> dict:
+    """(bytes, multiplies by kind) of one call of each B kernel at the
+    step's shapes: batch ciphertexts of pn planes, the ICRT's words and
+    M/p_i (mi), c digits whose windows span `span` RAW words."""
+    from cuhe_tpu_torch.probes.timing import ntt_products
+
+    prods = ntt_products(n)
+    return {
+        "ntt_fwd": (batch * pn * (n // 2 * 4 + n * 8),
+                    {"mul64": batch * pn * prods}),
+        # n^-1 folds into a twiddle pass; the mod p is not a multiply
+        "ntt_inv_modcrt": (batch * pn * n * 12,
+                           {"mul64": batch * pn * prods}),
+        # per coefficient and prime: y = x * b_i, then y times each
+        # nonzero word of M/p_i
+        "icrt": (batch * (pn + words) * (n // 2) * 4,
+                 {"mad32": batch * (n // 2) * sum(
+                     1 + (v.bit_length() + 31) // 32 for v in mi)}),
+        "ntt_fwd_digits": (batch * span * (n // 2) * 4 + c * batch * n * 8,
+                           {"mul64": c * batch * prods}),
+        "relin_mulacc": mulacc_model(batch, pn, n, c, False),
+    }
+
+
+def modp_wrap_extremes(dev) -> None:
+    """The plain versions' int64 operations whose intermediates wrap modulo
+    2^64 (ops/modp.py: a word product up to (2^32 - 1)^2, bit-pattern sums
+    and products), on the card, against Python ints on every pair of
+    extreme inputs: words on both sides of 2^31 and at 2^32 - 1, canonical
+    values at the int64 sign boundary and near P (tests/test_torch_modp.py
+    holds the same cases on the CPU)."""
+    import torch
+    from cuhe_tpu_torch.ops import modp
+
+    P = modp.P
+    words = (0, 1, 3, (1 << 31) - 1, 1 << 31, (1 << 31) + 1, (1 << 32) - 2,
+             (1 << 32) - 1)
+    canon = (0, 1, (1 << 32) - 1, 1 << 32, (1 << 63) - 1, 1 << 63,
+             (1 << 63) + 1, P - (1 << 32), P - 2, P - 1)
+
+    def t(vals):
+        return torch.tensor(vals, dtype=torch.int64, device=dev)
+
+    def bits(vals):
+        return t([v - (1 << 64) if v >> 63 else v for v in vals])
+
+    def ints(x):
+        return [v % (1 << 64) for v in x.cpu().tolist()]
+
+    a = [x for x in words for _ in words]
+    b = [y for _ in words for y in words]
+    lo, hi = modp.mul32(t(a), t(b))
+    cases = {"mul32": (list(zip(lo.cpu().tolist(), hi.cpu().tolist())),
+                       [(x * y & 0xFFFFFFFF, x * y >> 32)
+                        for x, y in zip(a, b)])}
+    vals = list(canon) + [P, P + 1, (1 << 64) - 2, (1 << 64) - 1]
+    cases["pack64"] = (ints(modp.pack64(t([v & 0xFFFFFFFF for v in vals]),
+                                        t([v >> 32 for v in vals]))),
+                       [v % P for v in vals])
+    a = [x for x in canon for _ in canon]
+    b = [y for _ in canon for y in canon]
+    cases["add_bits64"] = (ints(modp.add_bits64(bits(a), bits(b))),
+                           [(x + y) % P for x, y in zip(a, b)])
+    cases["sub_bits64"] = (ints(modp.sub_bits64(bits(a), bits(b))),
+                           [(x - y) % P for x, y in zip(a, b)])
+    cases["mul_bits64"] = (ints(modp.mul_bits64(bits(a), (
+        t([y & 0xFFFFFFFF for y in b]), t([y >> 32 for y in b])))),
+        [x * y % P for x, y in zip(a, b)])
+    for name, (got, want) in cases.items():
+        if got != want:
+            raise AssertionError(f"modp.{name} on the card != Python ints at "
+                                 "the extremes")
+    log(f"[modp] {', '.join(cases)}: equal to Python ints at the extremes on "
+        "the card")
+
+
+def shard_shapes(dev, card, compare, rand_u32, rand_pair) -> None:
+    """Phase 2 at the shapes only a crt-sharded step gives the kernels
+    (parallel/mesh.py), at PRINCE level 0 (n = 32768, 25 primes, 40
+    digits) on a rank's 16 ciphertexts: the ICRT (B3) of each rank's primes
+    of `crt_split(25, 2)` and `crt_split(25, 4)` against the global M, whose
+    partials, summed mod M (`crt.icrt_combine_halves`, the all-reduce's
+    arithmetic), equal the ICRT of all 25; the multiply-accumulate (B4) on
+    the contiguous eval-key slices of 13 and 12 planes, equal to the plain
+    version's planes c0..c1-1 over the whole keys; and B1's two passes on
+    each column block and row block of 2, 4 and 8 ranks (8: column blocks of
+    16, narrower than the pass's 32-column tile), which together equal the
+    whole transform."""
+    import torch
+    from cuhe_tpu_torch import entry as port_entry
+    from cuhe_tpu_torch import hostmath as hm
+    from cuhe_tpu_torch.ops import crt, modp, ntt
+    from cuhe_tpu_torch.ops import ntt_kernels as nk
+    from cuhe_tpu_torch.parallel.mesh import crt_split
+    from cuhe_tpu_torch.params import make_params
+
+    pr = make_params(*port_entry.PRINCE_PARAMS)
+    n, w, batch = pr.ntt_len, pr.log_relin, 16
+    pn, words, knum = (pr.num_crt_prime, pr.words_coeff(0),
+                       pr.num_eval_key_lvl(0))
+    q, mi, bi = pr.icrt_consts(0)
+
+    def u32(vals):
+        return modp.to_u32(torch.tensor(vals, dtype=torch.int64, device=dev))
+
+    p_all = u32(list(pr.crt_primes[:pn]))
+    bi_all = u32(list(bi))
+    mi_all = u32([hm.ints_to_words([v], words)[:, 0].tolist() for v in mi])
+    m_words = u32(hm.ints_to_words([q], words)[:, 0].tolist())
+    ce = modp.to_u32(torch.remainder(modp.to_i64(rand_u32((batch, pn, n // 2))),
+                                     modp.to_i64(p_all)[:, None]))
+    ce[0, :, :64] = modp.to_u32(modp.to_i64(p_all)[:, None] - 1)  # M - 1
+    whole = crt.icrt_to_raw(ce, p_all, bi_all, mi_all, m_words)
+    for shards in (2, 4):
+        halves = 0
+        for c0, c1 in crt_split(pn, shards):
+            args = (ce[:, c0:c1].contiguous(), p_all[c0:c1], bi_all[c0:c1],
+                    mi_all[c0:c1].contiguous(), m_words)
+            part = crt.icrt_to_raw(*args)
+            compare("icrt", f"prince lvl 0 primes {c0}..{c1 - 1} of {pn}, "
+                    f"global M, x{batch}", lambda: part,
+                    lambda: crt.icrt_to_raw_plain(*args))
+            x = modp.to_i64(part)
+            halves = halves + torch.stack((x & 0xFFFF, x >> 16))
+        compare("icrt", f"prince lvl 0, partials of {shards} shards summed "
+                "mod M", lambda: crt.icrt_combine_halves(
+                    halves[0], halves[1], m_words, shards), lambda: whole)
+    del ce, whole, halves
+
+    raw = rand_u32((batch, words, n // 2))
+    ek = rand_pair((pr.num_eval_key, pn, n))
+    dig = nk.ntt_fwd_digits(raw, n, w=w, j0=0, c=knum)
+    full = nk.relin_mulacc_plain(dig, ek, j0=0, pnum=pn)
+    for c0, c1 in crt_split(pn, 2):
+        ek_s = tuple(v[:, c0:c1].contiguous() for v in ek)
+        compare("relin_mulacc", f"prince lvl 0 eval-key planes {c0}..{c1 - 1}"
+                f" ({c1 - c0} planes), {knum} digits x{batch}",
+                lambda: nk.relin_mulacc(dig, ek_s, j0=0, pnum=c1 - c0),
+                lambda: tuple(v[..., c0:c1, :] for v in full))
+    del raw, ek, dig, full, ek_s
+    torch.cuda.empty_cache()
+
+    n1, n2 = ntt.factors(n)
+    x = rand_u32((64, n // 2))
+    want = nk.fwd_linear(x, n)
+    for shards in (2, 4, 8):
+        cols, rows = n2 // shards, n1 // shards
+        xm = x.view(torch.int32).reshape(64, n1 // 2, n2)
+        mid = []
+        for r in range(shards):
+            xb = xm[..., r * cols:(r + 1) * cols].contiguous().view(torch.uint32)
+            got = nk.fwd_cols_block(xb, n, r * cols)
+            compare("ntt_fwd_cols_block", f"n={n} columns {r * cols}.."
+                    f"{(r + 1) * cols - 1} x64", lambda: got,
+                    lambda: nk.fwd_cols_block_plain(xb, n, r * cols))
+            mid.append(torch.stack([v.view(torch.int32) for v in got]))
+        mid = torch.cat(mid, dim=-1)                       # [2, 64, n1, n2]
+        outs = []
+        for r in range(shards):
+            blk = tuple(mid[i, :, r * rows:(r + 1) * rows].contiguous()
+                        .view(torch.uint32) for i in (0, 1))
+            got = nk.fwd_rows_block(blk, n)
+            compare("ntt_fwd_rows_block", f"n={n} rows {r * rows}.."
+                    f"{(r + 1) * rows - 1} x64", lambda: got,
+                    lambda: nk.fwd_rows_block_plain(blk, n))
+            outs.append(torch.stack([v.view(torch.int32) for v in got]))
+        whole = torch.cat(outs, dim=-2).reshape(2, 64, n)
+        compare("ntt_fwd", f"n={n} the blocks of {shards} shards", lambda: (
+            whole[0].view(torch.uint32), whole[1].view(torch.uint32)),
+            lambda: want)
+    log(f"[kernel] shard shapes: B3 on prime subsets, B4 on eval-key slices, "
+        f"B1's block passes bit-exact [{card}]")
+
+
+def block_pass_models(n: int, count: int, shards: int) -> dict:
+    """(bytes, multiplies) of B1's block passes on one rank's blocks of
+    `count` transforms split over `shards` ranks (its first block of
+    columns, j2 < n2/shards, whose four-step twiddles w^(k1 j2) are counted
+    where they are not a power of two)."""
+    import numpy as np
+    from cuhe_tpu_torch.ops import ntt
+    from cuhe_tpu_torch.probes.timing import ntt_products
+
+    n1, n2 = ntt.factors(n)
+    cols, rows = n2 // shards, n1 // shards
+    k1, j2 = np.arange(n1)[:, None], np.arange(cols)[None, :]
+    tw = int(np.count_nonzero(k1 * j2 % (n // 64)))
+    return {"ntt_fwd_cols_block": (count * (n1 // 2 * cols * 4 + n1 * cols * 8),
+                                   {"mul64": count * (cols * ntt_products(n1)
+                                                      + tw)}),
+            "ntt_fwd_rows_block": (count * rows * n2 * 16,
+                                   {"mul64": count * rows
+                                    * ntt_products(n2)})}
+
+
+NTT_SHARDED_ROWS = 64  # transforms of phase 8 (c)
+
+
+def phase8_rank(world, seed: int) -> dict:
+    """One rank of phase 8 (8 ranks on cuda:0 over Gloo): (a) the entry
+    step on meshes (2, 2) and (1, 3) (ranks 0-3, 0-2), (b) the PRINCE
+    level-0 step at batch 32 on (2, 2) (ranks 0-3), (c) one n = 32768
+    forward NTT of NTT_SHARDED_ROWS rows across 8, 4 and 2 ranks, each
+    rank's block against its block of B1's transform of the same rows in
+    natural order."""
+    import torch
+    from cuhe_tpu_torch.ops import _cuda, ntt
+    from cuhe_tpu_torch.ops import ntt_kernels as nk
+    from cuhe_tpu_torch.parallel import mesh as pmesh
+    from cuhe_tpu_torch.parallel import run
+
+    dev = world.device
+    out = {"rank": world.rank}
+    for name, nb, nc in (("entry 2x2", 2, 2), ("entry 1x3", 1, 3)):
+        m = pmesh.make_mesh(nb, nc, dev, ranks=range(nb * nc))
+        if m is not None:
+            out[name] = run.run_step(m, "entry")
+    torch.cuda.empty_cache()
+    m = pmesh.make_mesh(2, 2, dev, ranks=range(4))
+    if m is not None:
+        out["prince 2x2"] = run.run_step(m, "prince_l0", 32)
+    del m
+    torch.cuda.empty_cache()
+    n = 32768
+    n1, n2 = ntt.factors(n)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)  # the same rows on every rank
+    x = torch.randint(0, 1 << 32, (NTT_SHARDED_ROWS, n // 2), generator=gen,
+                      device=dev, dtype=torch.int64)
+    x = x.to(torch.int32).view(torch.uint32)
+    for s in (8, 4, 2):
+        m = pmesh.make_mesh(1, s, dev, ranks=range(s))
+        if m is None:
+            continue
+        fn = pmesh.ntt_fwd_sharded(m, n)
+        torch.cuda.synchronize(dev)
+        _cuda.reset_launches()
+        lo, hi = fn(x)
+        torch.cuda.synchronize(dev)
+        launches = dict(_cuda.LAUNCHES)
+        rows = n1 // s
+        k1 = slice(m.c * rows, (m.c + 1) * rows)
+        want = [ntt.mat_to_std(v.view(torch.int32), n).reshape(
+            -1, n2, n1)[..., k1] for v in nk.fwd_linear(x, n)]
+        same = all(torch.equal(g.view(torch.int32), w_)
+                   for g, w_ in zip((lo, hi), want))
+        out[f"ntt {s}"] = {"equal": same, "launches": launches,
+                           "shape": tuple(lo.shape)}
+    return out
+
+
+def parallel_phase(dev, card, rates, rand_u32, rand_pair, entry_out,
+                   prince_out) -> tuple[dict, dict]:
+    """Phase 8: the sharded step and NTT (parallel/mesh.py) on 8 ranks that
+    share cuda:0 over Gloo (collectives carry CUDA tensors through the
+    host: no time here is a claim about interconnects), the gathered
+    outputs held bit for bit against phases 3 and 4; then NCCL, one rank per
+    card, where there are two cards or more.  First, in this process alone
+    on the card, the B kernels' times at a (2, 2) rank's shapes and the
+    block passes' at (c)'s.  Returns (the block passes' timings, their
+    launches in (c), summed over the ranks)."""
+    import torch
+    from cuhe_tpu_torch import entry as port_entry
+    from cuhe_tpu_torch import hostmath as hm
+    from cuhe_tpu_torch.ops import crt, modp, ntt
+    from cuhe_tpu_torch.ops import ntt_kernels as nk
+    from cuhe_tpu_torch.parallel import mesh as pmesh
+    from cuhe_tpu_torch.parallel import run
+    from cuhe_tpu_torch.params import make_params
+    from cuhe_tpu_torch.probes.timing import bound, check_bound, cuda_ms
+
+    t0 = time.perf_counter()
+    count = torch.cuda.device_count()
+    log(f"[parallel] torch.cuda.device_count() = {count}")
+
+    # the B kernels at a (2, 2) rank's shapes of the PRINCE level-0 step:
+    # 16 ciphertexts, 13 or 12 planes, the ICRT of those primes against
+    # the global M, the multiply-accumulate on that slice of the keys
+    pr = make_params(*port_entry.PRINCE_PARAMS)
+    n, w, knum = pr.ntt_len, pr.log_relin, pr.num_eval_key_lvl(0)
+    words = pr.words_coeff(0)
+    q, mi, bi = pr.icrt_consts(0)
+    batch = 16
+
+    def u32(vals):
+        return modp.to_u32(torch.tensor(vals, dtype=torch.int64, device=dev))
+
+    m_words = u32(hm.ints_to_words([q], words)[:, 0].tolist())
+    for c0, c1 in pmesh.crt_split(pr.num_crt_prime, 2):
+        k = c1 - c0
+        p_k = u32(list(pr.crt_primes[c0:c1]))
+        icrt_args = (p_k, u32(list(bi[c0:c1])),
+                     u32([hm.ints_to_words([v], words)[:, 0].tolist()
+                          for v in mi[c0:c1]]), m_words)
+        x = rand_u32((batch, k, n // 2))
+        xp = rand_pair((batch, k, n))
+        ce = modp.to_u32(torch.remainder(modp.to_i64(x),
+                                         modp.to_i64(p_k)[:, None]))
+        raw = rand_u32((batch, words, n // 2))
+        ek = rand_pair((knum, k, n))
+        dig = nk.ntt_fwd_digits(raw, n, w=w, j0=0, c=knum)
+        span = min(words, (w * knum - 1) // 32 + 2)
+        models = step_kernel_models(batch, k, n, words, knum, span, mi[c0:c1])
+        cases = {
+            "ntt_fwd": (lambda: nk.fwd_linear(x, n),
+                        lambda: nk.fwd_linear_plain(x, n)),
+            "ntt_inv_modcrt": (lambda: nk.inv_linear(xp, n, p_k),
+                               lambda: nk.inv_linear_plain(xp, n, p_k)),
+            "icrt": (lambda: crt.icrt_to_raw(ce, *icrt_args),
+                     lambda: crt.icrt_to_raw_plain(ce, *icrt_args)),
+            "ntt_fwd_digits": (
+                lambda: nk.ntt_fwd_digits(raw, n, w=w, j0=0, c=knum),
+                lambda: nk.ntt_fwd_digits_plain(raw, n, w=w, j0=0, c=knum)),
+            "relin_mulacc": (
+                lambda: nk.relin_mulacc(dig, ek, j0=0, pnum=k),
+                lambda: nk.relin_mulacc_plain(dig, ek, j0=0, pnum=k)),
+        }
+        for name, (kern, plain) in cases.items():
+            ms, plain_ms = cuda_ms(kern, 10), cuda_ms(plain, 2)
+            b_ms, b_by = bound(*models[name], rates)
+            check_bound(f"{name} shard {k} planes", ms, b_ms)
+            log(f"[time] {name} prince_l0 rank block x{batch}, planes "
+                f"{c0}..{c1 - 1}: kernel {ms:.4f} ms, plain {plain_ms:.4f} "
+                f"ms, bound {b_ms:.4f} ms ({b_by}) [{card}]")
+        del x, xp, ce, raw, ek, dig
+        torch.cuda.empty_cache()
+
+    # B1's block passes at the shapes of (c), one rank's first blocks; the
+    # kernels line keeps the 2-rank shapes' times
+    timings = {}
+    n1, n2 = ntt.factors(n)
+    for shards in (8, 4, 2):
+        cols, rows = n2 // shards, n1 // shards
+        xb = rand_u32((NTT_SHARDED_ROWS, n1 // 2, cols))
+        mid = rand_pair((NTT_SHARDED_ROWS, rows, n2))
+        models = block_pass_models(n, NTT_SHARDED_ROWS, shards)
+        for name, kern, plain in (
+                ("ntt_fwd_cols_block", lambda: nk.fwd_cols_block(xb, n, 0),
+                 lambda: nk.fwd_cols_block_plain(xb, n, 0)),
+                ("ntt_fwd_rows_block", lambda: nk.fwd_rows_block(mid, n),
+                 lambda: nk.fwd_rows_block_plain(mid, n))):
+            ms, plain_ms = cuda_ms(kern, 20), cuda_ms(plain, 3)
+            b_ms, b_by = bound(*models[name], rates)
+            check_bound(f"{name} {shards} shards", ms, b_ms)
+            timings[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                                 bound_by=b_by)
+            log(f"[time] {name} n={n} over {shards} ranks x"
+                f"{NTT_SHARDED_ROWS}: kernel {ms:.4f} ms, plain "
+                f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}) [{card}]")
+    torch.cuda.empty_cache()
+
+    # (a)-(c): 8 ranks on this card over Gloo, started once
+    t1 = time.perf_counter()
+    ranks = run.spawn(2, 4, phase8_rank, 2026, backend="gloo", device="cuda",
+                      timeout=600)
+    log(f"[parallel] 8 ranks over Gloo on cuda:0 in "
+        f"{time.perf_counter() - t1:.1f} s")
+    b_kernels = ("ntt_fwd", "ntt_inv_modcrt", "icrt", "ntt_fwd_digits",
+                 "relin_mulacc")
+    for name, want, n_ranks in (("entry 2x2", entry_out, 4),
+                                ("entry 1x3", entry_out, 3),
+                                ("prince 2x2", prince_out, 4)):
+        res = [r[name] for r in ranks[:n_ranks]]
+        got = res[0]["output"]
+        if got.shape != tuple(want.shape) or not (got == want.numpy()).all():
+            raise AssertionError(f"{name}: gathered output != the unsharded "
+                                 "step's on the card")
+        if len({r["sha256"] for r in res}) != 1:
+            raise AssertionError(f"{name}: the ranks gathered different "
+                                 "outputs")
+        for r in res:
+            missing = [k for k in b_kernels if r["launches"].get(k, 0) < 1]
+            if missing:
+                raise AssertionError(f"{name} rank {r['rank']}: {missing} "
+                                     "not launched")
+            log(run.report(r, f"parallel {name} gloo, {card}"))
+        log(f"[parallel] {name}: gathered {got.shape} == the unsharded card "
+            f"output bit for bit, every B kernel launched on every rank")
+    block_launches = {}
+    for s in (8, 4, 2):
+        for r in ranks[:s]:
+            res = r[f"ntt {s}"]
+            if not res["equal"]:
+                raise AssertionError(f"ntt_fwd_sharded over {s} ranks: rank "
+                                     f"{r['rank']}'s block != B1's")
+            for k in ("ntt_fwd_cols_block", "ntt_fwd_rows_block"):
+                if res["launches"].get(k, 0) < 1:
+                    raise AssertionError(f"ntt over {s}: {k} not launched on "
+                                         f"rank {r['rank']}")
+                block_launches[k] = block_launches.get(k, 0) + res["launches"][k]
+        log(f"[parallel] ntt_fwd_sharded n={n} x{NTT_SHARDED_ROWS} over {s} "
+            f"ranks: every block == B1's transform in natural order; "
+            f"launches {[r[f'ntt {s}']['launches'] for r in ranks[:s]]}")
+
+    # (d): NCCL, one rank per card
+    if count >= 2:
+        t1 = time.perf_counter()
+        res = run.spawn(1, count, run.run_step, "prince_l0", 32, True,
+                        backend="nccl", device="cuda", timeout=600)
+        if not res[0]["equal"]:
+            raise AssertionError("nccl: gathered output != the unsharded step")
+        for r in res:
+            log(run.report(r, f"parallel nccl 1x{count}, {card}"))
+        log(f"nccl: 1x{count} bit-equal to the unsharded step in "
+            f"{time.perf_counter() - t1:.1f} s [{card}]")
+    else:
+        log("nccl: skipped: one device")
+    log(f"[parallel] phase 8 in {time.perf_counter() - t0:.1f} s")
+    return timings, block_launches
 
 
 class CallTimer:
@@ -677,7 +1115,7 @@ def main() -> int:
     from cuhe_tpu_torch.probes import calib as probe_calib
     from cuhe_tpu_torch.probes import suite as probe_suite
     from cuhe_tpu_torch.probes.timing import (bound, check_bound, cuda_ms,
-                                              gpu_line, ntt_products)
+                                              gpu_line)
     from cuhe_tpu_torch.step import GateStep
 
     card = gpu_line()
@@ -758,6 +1196,7 @@ def main() -> int:
         log(f"[kernel] {name} {shape_tag}: bit-exact")
 
     # ---- 2. every kernel against its plain version ------------------------
+    modp_wrap_extremes(dev)
     results = {}
     for n in (16384, 32768, 65536):
         x = rand_u32((8, n // 2))
@@ -938,29 +1377,7 @@ def main() -> int:
                                               m_words))
         del ce
         span = min(words, (w * c - 1) // 32 + 2)
-        prods = ntt_products(n)
-
-        def mulacc_model(cc, with_acc):
-            """(bytes, multiplies) of relin_mulacc over cc digits: the
-            previous partial is read only where one is given"""
-            return ((cc * batch + cc * pn + (2 if with_acc else 1)
-                     * batch * pn) * n * 8, {"mul64": cc * batch * pn * n})
-
-        model = {  # (bytes, multiplies by kind) of one call at these shapes
-            "ntt_fwd": (batch * pn * (n // 2 * 4 + n * 8),
-                        {"mul64": batch * pn * prods}),
-            # n^-1 folds into a twiddle pass; the mod p is not a multiply
-            "ntt_inv_modcrt": (batch * pn * n * 12,
-                               {"mul64": batch * pn * prods}),
-            # per coefficient and prime: y = x * b_i, then y times each
-            # nonzero word of M/p_i
-            "icrt": (batch * (pn + words) * (n // 2) * 4,
-                     {"mad32": batch * (n // 2) * sum(
-                         1 + (v.bit_length() + 31) // 32 for v in mi)}),
-            "ntt_fwd_digits": (batch * span * (n // 2) * 4 + c * batch * n * 8,
-                               {"mul64": c * batch * prods}),
-            "relin_mulacc": mulacc_model(c, False),
-        }
+        model = step_kernel_models(batch, pn, n, words, c, span, mi)
         # resident blocks per SM of each kernel's launches at these shapes
         occupancy = {
             "ntt_fwd": lambda: {q: ablate.blocks_per_sm(q, n, dev)
@@ -988,7 +1405,7 @@ def main() -> int:
         # as the step ran them with a 64 MiB digit chunk, against one
         # launch over all of them
         ms = cuda_ms(later[0], 20)
-        b_ms, b_by = bound(*mulacc_model(c1, True), rates)
+        b_ms, b_by = bound(*mulacc_model(batch, pn, n, c1, True), rates)
         check_bound(f"relin_mulacc {tag} later chunk", ms, b_ms)
         log(f"[time] relin_mulacc {tag} digits {j1}..{j1 + c1 - 1} + acc: "
             f"kernel {ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}) [{card}]")
@@ -1018,6 +1435,7 @@ def main() -> int:
 
     dhs_shapes(dev, card, compare, rand_u32, rand_pair)
     prince_shapes(dev, card, compare, rand_u32, rand_pair)
+    shard_shapes(dev, card, compare, rand_u32, rand_pair)
 
     # ---- 3. entry configuration: card == CPU ------------------------------
     step_cpu, args_cpu = port_entry.entry(device="cpu")
@@ -1030,6 +1448,7 @@ def main() -> int:
     digest = hashlib.sha256(got.cpu().numpy().tobytes()).hexdigest()
     log(f"[entry] step on card == step on CPU, uint32 {tuple(got.shape)}, "
         f"sha256 {digest}")
+    entry_out = got.cpu()  # phase 8 gathers the sharded step's to it
     entry_ms = cuda_ms(lambda: step_gpu(*args_gpu), 10)
     log(f"[entry] step {entry_ms:.3f} ms for 2 ciphertexts [{card}]")
     del step_cpu, args_cpu, step_gpu, args_gpu
@@ -1062,6 +1481,7 @@ def main() -> int:
         f"[{card}]")
 
     profile_step(lambda: step(*args), step_ms, card, "one batch-32 step")
+    prince_out = out.cpu()
     del step, args, two, ref, got2, out
     torch.cuda.empty_cache()
 
@@ -1086,6 +1506,10 @@ def main() -> int:
     prince_full(dev, card)
     log(f"[prince] phase 7 in {time.perf_counter() - t0:.1f} s")
 
+    # ---- 8. multi-device: the sharded step and NTT --------------------------
+    block_timings, block_launches = parallel_phase(
+        dev, card, rates, rand_u32, rand_pair, entry_out, prince_out)
+
     sources = {"ntt_fwd": ("cuhe_tpu_torch/csrc/ntt.cu",
                            "cuhe_tpu/ops/ntt_kernels.py:330"),
                "ntt_inv_modcrt": ("cuhe_tpu_torch/csrc/ntt.cu",
@@ -1106,6 +1530,13 @@ def main() -> int:
                         "max_abs_err": 0, "ms": r["ms"],
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"], "library_ms": None})
+    # B1's block passes: launches in phase 8 (c), summed over the ranks
+    for name, r in block_timings.items():
+        kernels.append({"name": name, "route": "cuda",
+                        "source": "cuhe_tpu_torch/csrc/ntt.cu",
+                        "replaces": "cuhe_tpu/ops/ntt_kernels.py:330",
+                        "launches": block_launches[name], "max_abs_err": 0,
+                        **r, "library_ms": None})
     kernels += probe_suite.kernel_line(records, probe_launches)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(gpu_line(), flush=True)

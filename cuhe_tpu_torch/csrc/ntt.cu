@@ -173,8 +173,9 @@ __device__ __forceinline__ uint64_t inner_twiddle(uint64_t x, int a, int kb,
 // ---------------------------------------------------------------------------
 // column passes
 //
-// A block takes kTileCols columns of one transform; the tiles of a
-// transform are neighbouring blocks, so the blocks in flight together cover
+// A block takes kTileCols neighbouring columns (of one transform, where a
+// transform holds at least that many); the tiles of a transform are
+// neighbouring blocks, so the blocks in flight together cover
 // whole rows of device memory.  Stage 1: warp task a
 // (a < M = L/16) holds, in lane cc, the 16 words [a + M jb, cc] of the
 // column, read straight from device memory; it runs the length-16 DFT,
@@ -185,9 +186,15 @@ __device__ __forceinline__ uint64_t inner_twiddle(uint64_t x, int a, int kb,
 // bitrev(r), stage 2 stores without DFTs.
 // ---------------------------------------------------------------------------
 
-// Forward column pass of transform tr: length-n1 DFTs over j1 (rows
-// j1 >= n1/2 are zero), times w^(k1 j2), stored at [k1, j2] of the output
-// planes.
+// Forward column pass of `count` transforms: length-n1 DFTs over j1 (rows
+// j1 >= n1/2 are zero), times w^(k1 j2), stored at [k1, jc] of the output
+// planes.  Each transform holds C = 2^logc of the n2 columns, j2 = j2_0 +
+// jc for jc < C, as [n1/2, C] in and [n1, C] out: all of them (logc =
+// logn2, j2_0 = 0), or the column block of a transform split across
+// devices (cuhe_tpu_torch/parallel/mesh.py::ntt_fwd_sharded).  Lane `lane`
+// of block `blockIdx.x` takes column g = 32 blockIdx.x + lane of the count
+// * C; where C < 32 a tile spans 32 / C transforms, and lanes past the last
+// transform load zeros and store nothing.
 // DIGIT: the input is the w-bit window at bit w * (j0 + digit) of RAW words
 // [batch, w32, n/2] (ntt_1_*_ext_block semantics: planes past the top word
 // read zero, no high-word bits at shift 0); transform = digit * batch + b.
@@ -195,22 +202,24 @@ template <bool DIGIT, int STOP, int LOGL>
 __global__ void __launch_bounds__(kThreads)
 fwd_cols(const uint32_t* __restrict__ x, uint32_t* __restrict__ out_lo,
          uint32_t* __restrict__ out_hi, const uint64_t* __restrict__ pw,
-         int logn2, int batch, int w32, int w, int j0) {
+         int logn2, int logc, int j2_0, int count, int batch, int w32, int w,
+         int j0) {
   constexpr int L = 1 << LOGL, M = L >> 4, LOGM = LOGL - 4;
   constexpr int S64 = kShift64<false>;
   extern __shared__ uint64_t s[];
-  const int n2 = 1 << logn2, logn = LOGL + logn2;
-  const size_t n = (size_t)1 << logn, half = n >> 1;
+  const int c = 1 << logc, logn = LOGL + logn2;
+  const size_t n = (size_t)1 << logn, half = (size_t)c << (LOGL - 1);
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  // block = transform * (n2 / kTileCols) + column tile
-  const int tr = blockIdx.x >> (logn2 - kLogTile);
-  const int j2 = ((blockIdx.x << kLogTile) & (n2 - 1)) + lane;
+  // the lane's transform, its column in the block, and in the transform
+  const size_t g = ((size_t)blockIdx.x << kLogTile) + lane;
+  const int tr = (int)(g >> logc), jc = (int)(g & (c - 1)), j2 = j2_0 + jc;
+  const bool live = tr < count;
 
-  const uint32_t* src;
+  const uint32_t* src = nullptr;
   const uint32_t* src_hi = nullptr;
   int sh = 0;
   uint32_t mask = 0xFFFFFFFFu;
-  if (DIGIT) {
+  if (live && DIGIT) {
     const int b = tr % batch, digit = tr / batch;
     const int bit = w * (j0 + digit);
     const int k = bit >> 5;
@@ -218,7 +227,7 @@ fwd_cols(const uint32_t* __restrict__ x, uint32_t* __restrict__ out_lo,
     mask = w < 32 ? (1u << w) - 1u : 0xFFFFFFFFu;
     src = k < w32 ? x + ((size_t)b * w32 + k) * half : nullptr;
     if (sh && k + 1 < w32) src_hi = x + ((size_t)b * w32 + k + 1) * half;
-  } else {
+  } else if (live) {
     src = x + tr * half;
   }
 
@@ -230,13 +239,13 @@ fwd_cols(const uint32_t* __restrict__ x, uint32_t* __restrict__ out_lo,
   for (int t = 0; t < TASKS; ++t) {
 #pragma unroll
     for (int jb = 0; jb < 8; ++jb) {
-      const size_t off = (size_t)(warp + t * kWarps + M * jb) * n2 + j2;
+      const size_t off = (size_t)(warp + t * kWarps + M * jb) * c + jc;
       if (DIGIT) {
         uint32_t val = src ? src[off] >> sh : 0u;
         if (src_hi) val |= src_hi[off] << (32 - sh);
         in[t][jb] = val & mask;
       } else {
-        in[t][jb] = src[off];
+        in[t][jb] = src ? src[off] : 0u;
       }
     }
   }
@@ -264,8 +273,10 @@ fwd_cols(const uint32_t* __restrict__ x, uint32_t* __restrict__ out_lo,
     }
   }
   __syncthreads();
+  // stage 2 reads only the lane's own column: a dead lane is done
+  if (!live) return;
 
-  const size_t ob = (size_t)tr * n + j2;
+  const size_t ob = ((size_t)tr << (LOGL + logc)) + jc;
   for (int kb = warp; kb < 16; kb += kWarps) {
     uint64_t v[M];
 #pragma unroll
@@ -286,7 +297,7 @@ fwd_cols(const uint32_t* __restrict__ x, uint32_t* __restrict__ out_lo,
         val = gl_mul(val, tw);
         if (ka + 1 < M) tw = gl_mul(tw, step);
       }
-      gl_store(out_lo, out_hi, ob + (size_t)(kb + 16 * ka) * n2, val);
+      gl_store(out_lo, out_hi, ob + (size_t)(kb + 16 * ka) * c, val);
     }
   }
 }
@@ -367,12 +378,13 @@ inv_cols(const uint64_t* __restrict__ a_in, uint32_t* __restrict__ out,
 // !INV: forward stage 2, pair in, pair out (in place in the transforms).
 // INV: inverse stage 1 (pw holds w^-e), times w^-(k1 t2), into u64 words.
 // The planes are offset to the inverse's chunk by the launcher; out64 is
-// indexed from the chunk's first transform.
+// indexed from the chunk's first transform.  `rows` rows in all: the last
+// tile's rows past them load zeros and store nothing.
 template <bool INV, int STOP, int LOGL>
 __global__ void __launch_bounds__(kThreads)
 ntt_rows(const uint32_t* in_lo, const uint32_t* in_hi, uint32_t* out_lo,
          uint32_t* out_hi, uint64_t* out64, const uint64_t* __restrict__ pw,
-         int logn1) {
+         int logn1, int rows) {
   constexpr int L = 1 << LOGL, M = L >> 4, LOGM = LOGL - 4;
   constexpr int S64 = kShift64<INV>;
   using T = RowTile<LOGL>;
@@ -384,6 +396,7 @@ ntt_rows(const uint32_t* in_lo, const uint32_t* in_hi, uint32_t* out_lo,
   const int r0 = (blockIdx.x << kLogTile) & ((1 << logn1) - 1);
   const size_t base = ((size_t)(blockIdx.x >> (logn1 - kLogTile)) << logn) +
                       ((size_t)r0 << LOGL);
+  const int live = rows - (blockIdx.x << kLogTile);  // the tile's rows
 
   // all of a thread's 16-byte loads are issued before the shared stores
   constexpr int VECS = kTileRows * L / 4 / kThreads;
@@ -391,8 +404,11 @@ ntt_rows(const uint32_t* in_lo, const uint32_t* in_hi, uint32_t* out_lo,
 #pragma unroll
   for (int u = 0; u < VECS; ++u) {
     const int i = threadIdx.x + u * kThreads;
-    lo[u] = *reinterpret_cast<const uint4*>(in_lo + base + i * 4);
-    hi[u] = *reinterpret_cast<const uint4*>(in_hi + base + i * 4);
+    lo[u] = hi[u] = make_uint4(0u, 0u, 0u, 0u);
+    if ((i >> (LOGL - 2)) < live) {
+      lo[u] = *reinterpret_cast<const uint4*>(in_lo + base + i * 4);
+      hi[u] = *reinterpret_cast<const uint4*>(in_hi + base + i * 4);
+    }
   }
 #pragma unroll
   for (int u = 0; u < VECS; ++u) {
@@ -449,6 +465,7 @@ ntt_rows(const uint32_t* in_lo, const uint32_t* in_hi, uint32_t* out_lo,
 #pragma unroll
   for (int i = threadIdx.x; i < kTileRows * L / 4; i += kThreads) {
     const int r = i >> (LOGL - 2), j = (i & (L / 4 - 1)) * 4;
+    if (r >= live) continue;
     uint64_t v[4];
 #pragma unroll
     for (int q = 0; q < 4; ++q) {
@@ -513,30 +530,44 @@ cudaError_t dispatch(int logl, F f) {
   return cudaErrorInvalidValue;
 }
 
+// The column pass over `count` transforms, each holding its columns
+// j2_0 .. j2_0 + 2^logc - 1: all n2 of them (logc = logn2, j2_0 = 0), or a
+// column block.
 template <bool DIGIT, int STOP>
 cudaError_t launch_cols(const uint32_t* x, uint32_t* lo, uint32_t* hi,
                         const uint64_t* pw, int count, int logn1, int logn2,
-                        int batch, int w32, int w, int j0, cudaStream_t stream,
-                        int* occ = nullptr) {
+                        int logc, int j2_0, int batch, int w32, int w, int j0,
+                        cudaStream_t stream, int* occ = nullptr) {
+  if (logc < 0 || logc > logn2 || j2_0 < 0 ||
+      j2_0 + (1 << logc) > (1 << logn2))
+    return cudaErrorInvalidValue;
   const int smem = (kTileCols << logn1) * 8;
+  const int blocks =
+      (int)((((long long)count << logc) + kTileCols - 1) >> kLogTile);
   return dispatch(logn1, [&](auto logl) {
     return run<&fwd_cols<DIGIT, STOP, decltype(logl)::value>>(
-        count << (logn2 - kLogTile), smem, stream, occ, x, lo, hi, pw, logn2,
+        blocks, smem, stream, occ, x, lo, hi, pw, logn2, logc, j2_0, count,
         batch, w32, w, j0);
   });
 }
 
+// The row pass over `rows` consecutive rows of n2 words: count << logn1
+// for whole transforms, or a block of rows.  Only the inverse's twiddle
+// depends on the row's k1, which it takes from the row's place in its
+// transform of n1 rows, so the inverse takes whole transforms only.
 template <bool INV, int STOP>
 cudaError_t launch_rows(const uint32_t* in_lo, const uint32_t* in_hi,
                         uint32_t* out_lo, uint32_t* out_hi, uint64_t* out64,
-                        const uint64_t* pw, int count, int logn1, int logn2,
+                        const uint64_t* pw, int rows, int logn1, int logn2,
                         cudaStream_t stream, int* occ = nullptr) {
+  if (rows < 0 || (INV && (rows & ((1 << logn1) - 1))))
+    return cudaErrorInvalidValue;
   const int smem =
       kTileRows * (logn2 == 8 ? RowTile<8>::W : RowTile<7>::W) * 8;
   return dispatch(logn2, [&](auto logl) {
     return run<&ntt_rows<INV, STOP, decltype(logl)::value>>(
-        count << (logn1 - kLogTile), smem, stream, occ, in_lo, in_hi, out_lo,
-        out_hi, out64, pw, logn1);
+        (rows + kTileRows - 1) / kTileRows, smem, stream, occ, in_lo, in_hi,
+        out_lo, out_hi, out64, pw, logn1, rows);
   });
 }
 
@@ -567,10 +598,11 @@ int cuhe_ntt_fwd(const uint32_t* x, uint32_t* lo, uint32_t* hi,
                  const uint64_t* pw, int count, int logn1, int logn2,
                  cudaStream_t stream) {
   cudaError_t e = launch_cols<false, kFull>(x, lo, hi, pw, count, logn1,
-                                            logn2, 1, 0, 0, 0, stream);
+                                            logn2, logn2, 0, 1, 0, 0, 0,
+                                            stream);
   if (e != cudaSuccess) return (int)e;
-  return (int)launch_rows<false, kFull>(lo, hi, lo, hi, nullptr, pw, count,
-                                        logn1, logn2, stream);
+  return (int)launch_rows<false, kFull>(lo, hi, lo, hi, nullptr, pw,
+                                        count << logn1, logn1, logn2, stream);
 }
 
 // raw: u32 [batch, w32, n/2] -> lo, hi: u32 [c, batch, n] mat-linear NTTs of
@@ -580,10 +612,11 @@ int cuhe_ntt_fwd_digits(const uint32_t* raw, uint32_t* lo, uint32_t* hi,
                         int c, int logn1, int logn2, cudaStream_t stream) {
   const int count = c * batch;
   cudaError_t e = launch_cols<true, kFull>(raw, lo, hi, pw, count, logn1,
-                                           logn2, batch, w32, w, j0, stream);
+                                           logn2, logn2, 0, batch, w32, w, j0,
+                                           stream);
   if (e != cudaSuccess) return (int)e;
-  return (int)launch_rows<false, kFull>(lo, hi, lo, hi, nullptr, pw, count,
-                                        logn1, logn2, stream);
+  return (int)launch_rows<false, kFull>(lo, hi, lo, hi, nullptr, pw,
+                                        count << logn1, logn1, logn2, stream);
 }
 
 // x_lo, x_hi: u32 [count, n] mat-linear; scratch: u64 [min(count, chunk), n];
@@ -599,13 +632,26 @@ int cuhe_ntt_inv_modcrt(const uint32_t* x_lo, const uint32_t* x_hi,
     const int c = count - t0 < chunk ? count - t0 : chunk;
     cudaError_t e = launch_rows<true, kFull>(x_lo + t0 * n, x_hi + t0 * n,
                                              nullptr, nullptr, scratch, pwi,
-                                             c, logn1, logn2, stream);
+                                             c << logn1, logn1, logn2, stream);
     if (e == cudaSuccess)
       e = launch_inv_cols<kFull>(scratch, out + t0 * n, nullptr, p + t0, pwi,
                                  c, logn1, logn2, stream);
     if (e != cudaSuccess) return (int)e;
   }
   return 0;
+}
+
+// The forward column pass on a column block of transforms split across
+// devices (cuhe_tpu_torch/parallel/mesh.py::ntt_fwd_sharded), columns
+// j2_0 .. j2_0 + 2^logc - 1: x: u32 [count, n1/2, 2^logc] -> lo, hi: u32
+// [count, n1, 2^logc], B[k1, j2] w^(k1 j2) with the global j2.  Their row
+// pass is cuhe_ntt_rows on the rows of the rank's block.
+int cuhe_ntt_fwd_cols_block(const uint32_t* x, uint32_t* lo, uint32_t* hi,
+                            const uint64_t* pw, int count, int logn1,
+                            int logn2, int logc, int j2_0,
+                            cudaStream_t stream) {
+  return (int)launch_cols<false, kFull>(x, lo, hi, pw, count, logn1, logn2,
+                                        logc, j2_0, 1, 0, 0, 0, stream);
 }
 
 // The passes one at a time over all `count` transforms, for the per-pass
@@ -616,31 +662,33 @@ int cuhe_ntt_inv_modcrt(const uint32_t* x_lo, const uint32_t* x_hi,
 int cuhe_ntt_cols_io(const uint32_t* x, uint32_t* lo, uint32_t* hi,
                      const uint64_t* pw, int count, int logn1, int logn2,
                      cudaStream_t stream) {
-  return (int)launch_cols<false, kIo>(x, lo, hi, pw, count, logn1, logn2, 1,
-                                      0, 0, 0, stream);
+  return (int)launch_cols<false, kIo>(x, lo, hi, pw, count, logn1, logn2,
+                                      logn2, 0, 1, 0, 0, 0, stream);
 }
 
 int cuhe_ntt_cols_notw(const uint32_t* x, uint32_t* lo, uint32_t* hi,
                        const uint64_t* pw, int count, int logn1, int logn2,
                        cudaStream_t stream) {
   return (int)launch_cols<false, kNoEpilogue>(x, lo, hi, pw, count, logn1,
-                                              logn2, 1, 0, 0, 0, stream);
+                                              logn2, logn2, 0, 1, 0, 0, 0,
+                                              stream);
 }
 
 int cuhe_ntt_cols(const uint32_t* x, uint32_t* lo, uint32_t* hi,
                   const uint64_t* pw, int count, int logn1, int logn2,
                   cudaStream_t stream) {
-  return (int)launch_cols<false, kFull>(x, lo, hi, pw, count, logn1, logn2, 1,
-                                        0, 0, 0, stream);
+  return (int)launch_cols<false, kFull>(x, lo, hi, pw, count, logn1, logn2,
+                                        logn2, 0, 1, 0, 0, 0, stream);
 }
 
 // Forward row pass (the second launch of cuhe_ntt_fwd), out of place:
-// in_lo, in_hi -> out_lo, out_hi, all u32 [count, n].
+// in_lo, in_hi -> out_lo, out_hi, all u32 [rows, n2]: the n1 rows of each
+// transform, or a block of rows (ntt_fwd_sharded).
 int cuhe_ntt_rows(const uint32_t* in_lo, const uint32_t* in_hi,
                   uint32_t* out_lo, uint32_t* out_hi, const uint64_t* pw,
-                  int count, int logn1, int logn2, cudaStream_t stream) {
+                  int rows, int logn1, int logn2, cudaStream_t stream) {
   return (int)launch_rows<false, kFull>(in_lo, in_hi, out_lo, out_hi,
-                                        nullptr, pw, count, logn1, logn2,
+                                        nullptr, pw, rows, logn1, logn2,
                                         stream);
 }
 
@@ -651,14 +699,14 @@ int cuhe_ntt_rows_io(const uint32_t* x_lo, const uint32_t* x_hi,
                      uint64_t* out, const uint64_t* pwi, int count, int logn1,
                      int logn2, cudaStream_t stream) {
   return (int)launch_rows<true, kIo>(x_lo, x_hi, nullptr, nullptr, out, pwi,
-                                     count, logn1, logn2, stream);
+                                     count << logn1, logn1, logn2, stream);
 }
 
 int cuhe_ntt_inv_rows(const uint32_t* x_lo, const uint32_t* x_hi,
                       uint64_t* out, const uint64_t* pwi, int count,
                       int logn1, int logn2, cudaStream_t stream) {
   return (int)launch_rows<true, kFull>(x_lo, x_hi, nullptr, nullptr, out, pwi,
-                                       count, logn1, logn2, stream);
+                                       count << logn1, logn1, logn2, stream);
 }
 
 // Inverse column pass, a: u64 [count, n] -> lo, hi: u32 [count, n] without
@@ -687,15 +735,16 @@ int cuhe_ntt_blocks_per_sm(int pass, int logn1, int logn2, cudaStream_t) {
   cudaError_t e = cudaErrorInvalidValue;
   switch (pass) {
     case 0:
-      e = launch_cols<false, kIo>(0, 0, 0, 0, 0, l1, l2, 1, 0, 0, 0, 0, &occ);
+      e = launch_cols<false, kIo>(0, 0, 0, 0, 0, l1, l2, l2, 0, 1, 0, 0, 0, 0,
+                                  &occ);
       break;
     case 1:
-      e = launch_cols<false, kNoEpilogue>(0, 0, 0, 0, 0, l1, l2, 1, 0, 0, 0, 0,
-                                          &occ);
+      e = launch_cols<false, kNoEpilogue>(0, 0, 0, 0, 0, l1, l2, l2, 0, 1, 0,
+                                          0, 0, 0, &occ);
       break;
     case 2:
-      e = launch_cols<false, kFull>(0, 0, 0, 0, 0, l1, l2, 1, 0, 0, 0, 0,
-                                    &occ);
+      e = launch_cols<false, kFull>(0, 0, 0, 0, 0, l1, l2, l2, 0, 1, 0, 0, 0,
+                                    0, &occ);
       break;
     case 3:
       e = launch_rows<false, kFull>(0, 0, 0, 0, 0, 0, 0, l1, l2, 0, &occ);
@@ -713,7 +762,8 @@ int cuhe_ntt_blocks_per_sm(int pass, int logn1, int logn2, cudaStream_t) {
       e = launch_inv_cols<kFull>(0, 0, 0, 0, 0, 0, l1, l2, 0, &occ);
       break;
     case 8:
-      e = launch_cols<true, kFull>(0, 0, 0, 0, 0, l1, l2, 1, 0, 0, 0, 0, &occ);
+      e = launch_cols<true, kFull>(0, 0, 0, 0, 0, l1, l2, l2, 0, 1, 0, 0, 0, 0,
+                                   &occ);
       break;
   }
   return e == cudaSuccess ? occ : -(int)e;

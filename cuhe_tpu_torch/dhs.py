@@ -292,6 +292,12 @@ class CuDHS:
             out.append(self._reduce(c, lvl))
         return out
 
+    def skip_encryptions(self, count: int) -> None:
+        """Draw the samples of `count` encryptions without encrypting: the
+        sampler ends where `encrypt_many` of `count` messages leaves it."""
+        for _ in range(2 * count):
+            self.sample()
+
     def decrypt_many(self, cts: list[list[int]], lvl: int,
                      max_mul_path: int = 1) -> list[list[int]]:
         """Batched decrypt (one sk multiply round per path)."""

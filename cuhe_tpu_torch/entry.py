@@ -13,6 +13,11 @@ level-0 gate: n = 32768, 25 primes, 40 eval-key digits, and the S-box's
 batched AND of 32 ciphertexts.  Keys and inputs are random, from the same
 seeds: the step's work does not depend on their values.
 
+`sharded_entry(mesh)` and `make_sharded_prince_l0_step(mesh)` are their
+twins on a (batch, crt) mesh of ranks (``parallel/mesh.py``): each rank
+builds the same keys and inputs from the same seeds, then keeps its block
+of them, so the gathered output equals the unsharded step's.
+
 `simple_dhs()` is the DHS scheme at the reference's shipped simple_DHS
 configuration (``CuDHS(5, 2, 1, 61, 20, 8191)``, examples/run_simple_dhs.py):
 n = 16384, 7 primes at level 0, 141 one-bit eval keys, depth 5, 630 slots.
@@ -27,6 +32,7 @@ import torch
 
 from .context import Context, resolve_device
 from .dhs import CuDHS
+from .parallel.mesh import Mesh, ShardedGateStep, shard_ciphertext
 from .params import make_params
 from .step import GateStep
 
@@ -56,13 +62,17 @@ def keyed_context(params_args, device="cuda") -> Context:
     return ctx
 
 
+def _example_arrays(ctx: Context, batch: int):
+    rng = np.random.default_rng(1)
+    shape = (batch, ctx.params.num_crt_prime, ctx.n)
+    return _random_pairs(rng, shape, 2)
+
+
 def example_batch(ctx: Context, batch: int):
     """(a_lo, a_hi, b_lo, b_hi) uint32 [batch, pnum, n] on ctx.device, from
     numpy rng 1."""
-    rng = np.random.default_rng(1)
-    shape = (batch, ctx.params.num_crt_prime, ctx.n)
     return tuple(torch.from_numpy(v).to(ctx.device)
-                 for v in _random_pairs(rng, shape, 2))
+                 for v in _example_arrays(ctx, batch))
 
 
 def entry(device="cuda"):
@@ -77,6 +87,28 @@ def make_prince_l0_step(batch: int = 32, device="cuda"):
     with random eval keys (rng 0) and inputs (rng 1)."""
     ctx = keyed_context(PRINCE_PARAMS, device)
     return GateStep(ctx, 0), example_batch(ctx, batch)
+
+
+def _sharded_step(params_args, mesh: Mesh, batch: int):
+    ctx = keyed_context(params_args, mesh.device)
+    step = ShardedGateStep(ctx, 0, mesh)
+    ctx.ek_ntt = None  # the step holds this rank's planes of the keys
+    args = tuple(shard_ciphertext(torch.from_numpy(v), mesh).to(mesh.device)
+                 for v in _example_arrays(ctx, batch))
+    return step, args
+
+
+def sharded_entry(mesh: Mesh):
+    """(step, args): `entry()` on this rank's block of `mesh`; the step's
+    output is uint32 [2 / n_batch, 3, 8192]."""
+    return _sharded_step(ENTRY_PARAMS, mesh, 2)
+
+
+def make_sharded_prince_l0_step(mesh: Mesh, batch: int = 32):
+    """(step, args): `make_prince_l0_step(batch)` on this rank's block of
+    `mesh`: batch / n_batch ciphertexts, its planes of the 25, and its
+    planes of the eval keys."""
+    return _sharded_step(PRINCE_PARAMS, mesh, batch)
 
 
 def simple_dhs(seed: int | None = None, device="cuda") -> CuDHS:

@@ -314,8 +314,9 @@ class Prince:
 
         resume: optional (state, level, done_layers) from a checkpoint
         taken right after S-box layer `done_layers` (utils.checkpoint /
-        run_prince.py --resume): message/key ciphertexts are re-derived
-        (deterministic for a fixed seed), the circuit fast-forwards past the
+        run_prince.py --resume): the key ciphertexts are re-derived
+        (deterministic for a fixed seed; the message's samples are drawn
+        and its encryption skipped), the circuit fast-forwards past the
         first `done_layers` S-box layers and continues from the saved state.
         check(round, state, level) is invoked after every S-box layer run
         from here; on_layer(done, state, level) after every applied S-box
@@ -323,7 +324,12 @@ class Prince:
         persistence at all.
         """
         self.level = 0
-        state = self.encrypt_state(message_bits)
+        if resume is None:
+            state = self.encrypt_state(message_bits)
+        else:
+            # the saved state replaces the message's ciphertexts: only their
+            # samples are drawn, so that the keys' are the straight run's
+            self.dhs.skip_encryptions(len(message_bits))
         k0 = self.encrypt_state(key0_bits)
         k1 = self.encrypt_state(key1_bits)
         skip = 0

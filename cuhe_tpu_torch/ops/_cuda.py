@@ -39,6 +39,9 @@ _SIGNATURES = {
     "cuhe_ntt_fwd": "pppp" + "iii",
     "cuhe_ntt_fwd_digits": "pppp" + "iiiiiii",
     "cuhe_ntt_inv_modcrt": "pppppp" + "iiii",
+    # the forward column pass on a column block of a transform split across
+    # devices
+    "cuhe_ntt_fwd_cols_block": "pppp" + "iiiii",
     "cuhe_icrt": "pppppp" + "iiii",
     "cuhe_relin_mulacc": "pppppppp" + "iiiiiiii",
     "cuhe_calib": "p" + "iii",

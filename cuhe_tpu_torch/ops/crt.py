@@ -14,6 +14,11 @@ as a multiword sum whose result is the unique value in [0, M).
 (leq_M, Base.cu:845-856); the kernel, ``csrc/icrt.cu``, launched by
 `icrt_to_raw` for CUDA tensors, reduces once, after the last prime.
 
+With the primes split across devices (a crt-sharded step,
+``parallel/mesh.py``), each device runs the ICRT of its own primes against
+the global M, and `icrt_psum_combine`, the counterpart of
+``cuhe_tpu/ops/crt.py:165-215``, sums the partials with one all-reduce.
+
 Layouts: CRT ``[.., pnum, L]`` and RAW ``[.., words, L]`` uint32 planes;
 bi ``[pnum]``, mi_words ``[pnum, words]``, m_words ``[words]`` uint32.
 """
@@ -41,6 +46,23 @@ def crt_from_raw(raw: torch.Tensor, primes: torch.Tensor) -> torch.Tensor:
     return modp.to_u32(r)
 
 
+def _cond_sub_m(s: list, top: torch.Tensor, m: list, zero: torch.Tensor):
+    """Where the multiword value (top, s[words-1], .., s[0]) >= M: subtract
+    M.  int64 words in place; returns the new top word."""
+    ge = top > 0
+    eq = torch.ones_like(ge)
+    for w in range(len(m) - 1, -1, -1):
+        ge = ge | (eq & (s[w] > m[w]))
+        eq = eq & (s[w] == m[w])
+    ge = ge | eq
+    borrow = zero
+    for w in range(len(m)):
+        d = s[w] - m[w] - borrow
+        borrow = (d < 0).to(torch.int64)
+        s[w] = torch.where(ge, d & modp.M32, s[w])
+    return torch.where(ge, top - borrow, top)
+
+
 def icrt_to_raw_plain(crt, primes, bi, mi_words, m_words) -> torch.Tensor:
     """Plain version of `icrt_to_raw`: a loop over primes and words."""
     x = modp.to_i64(crt)
@@ -60,19 +82,7 @@ def icrt_to_raw_plain(crt, primes, bi, mi_words, m_words) -> torch.Tensor:
             t = s[w] + lo + carry
             s[w] = t & modp.M32
             carry = (t >> 32) + hi
-        s[words] = s[words] + carry
-        ge = s[words] > 0
-        eq = torch.ones_like(ge)
-        for w in range(words - 1, -1, -1):
-            ge = ge | (eq & (s[w] > m[w]))
-            eq = eq & (s[w] == m[w])
-        ge = ge | eq
-        borrow = zero
-        for w in range(words):
-            d = s[w] - m[w] - borrow
-            borrow = (d < 0).to(torch.int64)
-            s[w] = torch.where(ge, d & modp.M32, s[w])
-        s[words] = torch.where(ge, s[words] - borrow, s[words])
+        s[words] = _cond_sub_m(s, s[words] + carry, m, zero)
     return modp.to_u32(torch.stack(s[:words], dim=-2))
 
 
@@ -105,3 +115,52 @@ def icrt_blocks_per_sm(pnum: int, words: int, device) -> int:
     (cudaOccupancyMaxActiveBlocksPerMultiprocessor)."""
     return _cuda.query("cuhe_icrt_blocks_per_sm", torch.device(device), pnum,
                        words)
+
+
+# The shard sums of 16-bit halves are taken in int32: exact below 2^15 shards.
+MAX_SHARDS = (1 << 15) - 1
+
+
+def icrt_combine_halves(lo16: torch.Tensor, hi16: torch.Tensor,
+                        m_words: torch.Tensor, n_shards: int) -> torch.Tensor:
+    """The arithmetic of `icrt_psum_combine` after its all-reduce.
+
+    lo16, hi16: int [.., words, L], the sums over n_shards partials (each
+    in [0, M)) of their words' low and high 16-bit halves.  The halves are
+    rippled into words (value = sum_w (lo16_w + 2^16 hi16_w) 2^(32 w)),
+    and the total, below n_shards * M, is brought into [0, M) by
+    n_shards - 1 conditional subtracts of M.  Returns uint32 [.., words, L].
+    """
+    lo, hi = lo16.to(torch.int64), hi16.to(torch.int64)
+    m = modp.to_i64(m_words).tolist()
+    words = lo.shape[-2]
+    zero = torch.zeros_like(lo[..., 0, :])
+    s, carry = [], zero
+    for w in range(words):
+        t = lo[..., w, :] + (hi[..., w, :] << 16) + carry
+        s.append(t & modp.M32)
+        carry = t >> 32
+    top = carry
+    for _ in range(max(1, n_shards - 1)):
+        top = _cond_sub_m(s, top, m, zero)
+    return modp.to_u32(torch.stack(s, dim=-2))
+
+
+def icrt_psum_combine(partial: torch.Tensor, m_words: torch.Tensor, group,
+                      n_shards: int) -> torch.Tensor:
+    """Sum the per-shard ICRT partials of a crt-sharded prime axis mod M.
+
+    partial: uint32 [.., words, L], this shard's `icrt_to_raw` of its own
+    primes against the global M (a value in [0, M)); group: the crt axis
+    of a ``parallel.mesh.Mesh`` (its `all_reduce_sum` sums over the
+    n_shards ranks).  The words' 16-bit halves go through one all-reduce
+    in int32 (no collective takes uint32), then `icrt_combine_halves`.
+    Returns uint32 [.., words, L], the same on every shard.
+    """
+    if not 1 <= n_shards <= MAX_SHARDS:
+        raise ValueError(f"{n_shards} shards: the int32 sum of 16-bit halves "
+                         f"is exact for 1..{MAX_SHARDS}")
+    x = modp.to_i64(partial)
+    halves = torch.stack((x & 0xFFFF, x >> 16)).to(torch.int32)
+    halves = group.all_reduce_sum(halves)
+    return icrt_combine_halves(halves[0], halves[1], m_words, n_shards)

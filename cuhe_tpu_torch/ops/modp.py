@@ -2,9 +2,14 @@
 
 Counterpart of ``cuhe_tpu/ops/modp.py``.  A Z_P value is a ``(lo, hi)`` pair
 of 32-bit words.  PyTorch has no unsigned 32/64-bit arithmetic, so the words
-are widened to ``int64`` tensors holding values in [0, 2^32): products are
-built from 32x16-bit partial products (< 2^48) and a 128-bit product is
-folded back with 2^64 = 2^32 - 1 and 2^96 = -1 (mod P), as ModP.h does.
+are widened to ``int64`` tensors holding values in [0, 2^32): a 32x32-bit
+product is one int64 multiply, which wraps modulo 2^64 into the product's
+64 bits (two's complement; PyTorch's CPU and CUDA integer multiplies do so,
+and tests/test_torch_modp.py on the CPU and chip_smoke.py's phase 2 on the
+card hold every wrapping operation here at the extremes against Python
+ints), and a 128-bit product is folded back with 2^64 = 2^32 - 1 and
+2^96 = -1 (mod P), as ModP.h does.  The plain NTT's loop works on each
+value's u64 bit pattern in one int64 (`pack64`, `*_bits64`).
 
 Two forms of every operation:
   * ``*64`` functions work on int64 word pairs (the form the other plain
@@ -63,11 +68,13 @@ def u64_from_pair(lo: torch.Tensor, hi: torch.Tensor) -> np.ndarray:
 # ---------------------------------------------------------------------------
 
 def mul32(a, b):
-    """Full 32x32 -> 64-bit product of int64 words, as a word pair."""
-    p0 = a * (b & 0xFFFF)
-    p1 = a * (b >> 16)
-    t = p0 + ((p1 & 0xFFFF) << 16)
-    return t & M32, (t >> 32) + (p1 >> 16)
+    """Full 32x32 -> 64-bit product of int64 words < 2^32, as a word pair.
+
+    The product, up to (2^32 - 1)^2 > 2^63, wraps modulo 2^64 into the same
+    64 bits; its words are the low 32 bits and the arithmetic shift's low
+    32 bits."""
+    p = a * b
+    return p & M32, (p >> 32) & M32
 
 
 def mul64(a, b):
@@ -114,6 +121,58 @@ def mul_modp64(a, b):
     w0, w1, w2, w3 = mul64(a, b)
     # V = w0 + w1 2^32 + w2 2^64 + w3 2^96 = (w0 - w2 - w3) + (w1 + w2) 2^32
     return _fold(w0 - w2 - w3, w1 + w2)
+
+
+# ---------------------------------------------------------------------------
+# u64 values as their bit patterns in one int64 (x - 2^64 for x >= 2^63):
+# half the tensors and passes of a word pair, for the plain NTT's loop
+# ---------------------------------------------------------------------------
+
+_SIGN = -(1 << 63)
+_EPS = (1 << 32) - 1                # 2^64 mod P
+_P_KEY = (P - (1 << 64)) ^ _SIGN    # P's bit pattern, ordered as signed
+
+
+def pack64(lo, hi) -> torch.Tensor:
+    """int64 words -> the bit pattern of lo + hi * 2^32, reduced below P
+    (a word pair < 2^64 may be at most 2^32 - 2 above it)."""
+    x = lo | (hi << 32)
+    return torch.where((x ^ _SIGN) >= _P_KEY, x + _EPS, x)
+
+
+def unpack64(x):
+    """Bit pattern -> its int64 words."""
+    return x & M32, (x >> 32) & M32
+
+
+def add_bits64(a, b):
+    """(a + b) mod P for bit patterns of canonical values: where the sum
+    wraps past 2^64 or reaches P, adding 2^64 - P (2^32 - 1, wrapping)
+    gives it."""
+    s = a + b
+    fix = ((s ^ _SIGN) < (a ^ _SIGN)) | ((s ^ _SIGN) >= _P_KEY)
+    return torch.where(fix, s + _EPS, s)
+
+
+def sub_bits64(a, b):
+    """(a - b) mod P for bit patterns of canonical values."""
+    d = a - b
+    return torch.where((a ^ _SIGN) < (b ^ _SIGN), d - _EPS, d)
+
+
+def mul_bits64(a, w):
+    """(a * w) mod P for the bit pattern a and w's int64 words (w0, w1):
+    the four 32 x 32-bit products, their words summed as in `mul64`, then
+    `_fold`; returns a bit pattern."""
+    a0, a1 = a & M32, (a >> 32) & M32
+    p00, p01, p10, p11 = a0 * w[0], a0 * w[1], a1 * w[0], a1 * w[1]
+    s1 = ((p00 >> 32) & M32) + (p01 & M32) + (p10 & M32)
+    s2 = (((p01 >> 32) & M32) + ((p10 >> 32) & M32) + (p11 & M32)
+          + (s1 >> 32))
+    w2 = s2 & M32
+    lo, hi = _fold((p00 & M32) - w2 - ((p11 >> 32) & M32) - (s2 >> 32),
+                   (s1 & M32) + w2)
+    return lo | (hi << 32)
 
 
 def canonicalize64(a):

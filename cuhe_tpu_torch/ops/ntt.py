@@ -92,7 +92,8 @@ def dft64(lo, hi, n: int, inverse: bool = False, length: int | None = None):
     split of n take L = n1 or n2.
 
     Returns the pair in natural (std) NTT index order.  Never forms more than
-    a few [B, L] temporaries (on the CPU, [CPU_ROWS, L]).
+    a few [B, L] temporaries (on the CPU, [CPU_ROWS, L]).  The butterflies
+    work on each value's bit pattern in one int64 (`modp.pack64`).
     """
     L = n if length is None else length
     if L & (L - 1) or not 1 <= L <= n:
@@ -104,22 +105,19 @@ def dft64(lo, hi, n: int, inverse: bool = False, length: int | None = None):
                 torch.cat([v[1] for v in parts]))
     rev = bitrev_index(L, str(lo.device))
     tw_lo, tw_hi = power_words(n, inverse, str(lo.device))
-    lo, hi = lo[:, rev], hi[:, rev]
-    b = lo.shape[0]
+    x = modp.pack64(lo, hi)[:, rev]
+    b = x.shape[0]
     h = 1
     while h < L:
-        idx = torch.arange(h, device=lo.device) * (n // (2 * h))
-        w = (tw_lo[idx], tw_hi[idx])
-        x_lo = lo.view(b, L // (2 * h), 2, h)
-        x_hi = hi.view(b, L // (2 * h), 2, h)
-        u = (x_lo[:, :, 0], x_hi[:, :, 0])
-        v = modp.mul_modp64((x_lo[:, :, 1], x_hi[:, :, 1]), w)
-        s = modp.add_modp64(u, v)
-        d = modp.sub_modp64(u, v)
-        lo = torch.stack((s[0], d[0]), dim=2).reshape(b, L)
-        hi = torch.stack((s[1], d[1]), dim=2).reshape(b, L)
+        idx = torch.arange(h, device=x.device) * (n // (2 * h))
+        xv = x.view(b, L // (2 * h), 2, h)
+        u = xv[:, :, 0]
+        v = (xv[:, :, 1] if h == 1  # the twiddle w^0 = 1
+             else modp.mul_bits64(xv[:, :, 1], (tw_lo[idx], tw_hi[idx])))
+        x = torch.stack((modp.add_bits64(u, v), modp.sub_bits64(u, v)),
+                        dim=2).reshape(b, L)
         h *= 2
-    return lo, hi
+    return modp.unpack64(x)
 
 
 def std_to_mat(x: torch.Tensor, n: int) -> torch.Tensor:

@@ -112,6 +112,99 @@ def fwd_linear(x: torch.Tensor, n: int):
 
 
 # ---------------------------------------------------------------------------
+# B1's two passes on the blocks of a transform split across devices
+# (parallel/mesh.py::ntt_fwd_sharded): a column block j2_0 .. j2_0 + C - 1
+# of the [n1/2, n2] coefficient matrix, then a block of rows k1 of the
+# [n1, n2] intermediate
+# ---------------------------------------------------------------------------
+
+
+def fwd_cols_block_plain(x: torch.Tensor, n: int, j2_0: int):
+    """Plain version of `fwd_cols_block`."""
+    n1, _ = ntt.factors(n)
+    lead, cols = x.shape[:-2], x.shape[-1]
+    xt = modp.to_i64(x).reshape(-1, n1 // 2, cols).transpose(1, 2)
+    xt = xt.reshape(-1, n1 // 2)
+    lo = torch.cat([xt, torch.zeros_like(xt)], dim=-1)
+    lo, hi = ntt.dft64(lo, torch.zeros_like(lo), n, length=n1)  # [.., k1]
+    tw_lo, tw_hi = ntt.power_words(n, False, str(x.device))
+    k1 = torch.arange(n1, device=x.device)
+    j2 = torch.arange(j2_0, j2_0 + cols, device=x.device)
+    e = (j2[:, None] * k1[None, :]) % n                          # [C, n1]
+    lo, hi = modp.mul_modp64((lo.reshape(-1, cols, n1),
+                              hi.reshape(-1, cols, n1)), (tw_lo[e], tw_hi[e]))
+    shape = tuple(lead) + (n1, cols)
+    return (modp.to_u32(lo.transpose(1, 2)).reshape(shape),
+            modp.to_u32(hi.transpose(1, 2)).reshape(shape))
+
+
+def fwd_cols_block(x: torch.Tensor, n: int, j2_0: int):
+    """Column pass of B1 over a column block: x uint32 [.., n1/2, C] holds
+    columns j2_0 .. j2_0 + C - 1 of each transform's coefficient matrix
+    (coefficient j1 * n2 + j2).  Returns the uint32 pair [.., n1, C] of
+    B[k1, j2] w^(k1 j2), B the length-n1 DFT over j1, with the global j2."""
+    if _is_cpu(x):
+        return fwd_cols_block_plain(x, n, j2_0)
+    check_root_shift(n, False)
+    n1, n2 = ntt.factors(n)
+    _cuda.check(x, "x", torch.uint32)
+    cols = x.shape[-1]
+    if x.dim() < 2 or x.shape[-2] != n1 // 2:
+        raise ValueError(f"x: expected [.., {n1 // 2}, C], got {tuple(x.shape)}")
+    if (cols & (cols - 1) or not 1 <= cols <= n2 or j2_0 < 0
+            or j2_0 + cols > n2):
+        raise ValueError(f"column block {j2_0}..{j2_0 + cols - 1}: the pass "
+                         f"takes a power of two of 1..{n2} columns inside "
+                         f"0..{n2 - 1}")
+    lead = tuple(x.shape[:-2])
+    lo = torch.empty(lead + (n1, cols), dtype=torch.uint32, device=x.device)
+    hi = torch.empty_like(lo)
+    count = prod(lead)
+    if count:
+        _cuda.launch("ntt_fwd_cols_block", "cuhe_ntt_fwd_cols_block",
+                     x.device, x, lo, hi,
+                     _device_powers(n, False, str(x.device)), count,
+                     _log2(n1), _log2(n2), _log2(cols), j2_0)
+    return lo, hi
+
+
+def fwd_rows_block_plain(pair, n: int):
+    """Plain version of `fwd_rows_block`."""
+    _, n2 = ntt.factors(n)
+    lo, hi = pair
+    shape = lo.shape
+    lo, hi = ntt.dft64(modp.to_i64(lo).reshape(-1, n2),
+                       modp.to_i64(hi).reshape(-1, n2), n, length=n2)
+    return modp.to_u32(lo).reshape(shape), modp.to_u32(hi).reshape(shape)
+
+
+def fwd_rows_block(pair, n: int):
+    """Row pass of B1 over rows of the column pass's output: the uint32
+    pair [.., R, n2] of rows C[k1, j2] -> the pair [.., R, n2] of
+    D[k1, k2] = sum_j2 C[k1, j2] w^(n1 j2 k2).  Each row is its own
+    length-n2 DFT, so any block of rows k1 takes the pass (on the card,
+    B1's row kernel over these rows)."""
+    lo, hi = pair
+    if _is_cpu(lo):
+        return fwd_rows_block_plain(pair, n)
+    check_root_shift(n, False)
+    n1, n2 = ntt.factors(n)
+    _cuda.check(lo, "lo", torch.uint32, align=16)
+    _cuda.check(hi, "hi", torch.uint32, lo.shape, lo.device, align=16)
+    rows = prod(lo.shape[:-1])
+    if lo.shape[-1] != n2:
+        raise ValueError(f"rows: expected [.., R, {n2}], got "
+                         f"{tuple(lo.shape)}")
+    out_lo, out_hi = torch.empty_like(lo), torch.empty_like(hi)
+    if rows:
+        _cuda.launch("ntt_fwd_rows_block", "cuhe_ntt_rows",
+                     lo.device, lo, hi, out_lo, out_hi,
+                     _device_powers(n, False, str(lo.device)), rows,
+                     _log2(n1), _log2(n2))
+    return out_lo, out_hi
+
+
+# ---------------------------------------------------------------------------
 # inverse NTT + n^-1 + mod p (replaces ntt_kernels.py::_inv_call)
 # ---------------------------------------------------------------------------
 

@@ -77,28 +77,41 @@ def crt_mul_int(x, a: int, primes):
 
 # ---- modulus switching (Base.cu:1112-1138) ----
 
+def mod_switch_dirty(dirty: torch.Tensor, pt, mod_msg: int) -> torch.Tensor:
+    """The dropped plane's residues (int64, < p_t) moved by +/- ep*p_t so
+    that they become divisible by the message modulus, with the centered
+    branch on dirty > (p_t-1)/2 (int64 out)."""
+    ep = torch.remainder(dirty, mod_msg)
+    adj = torch.where(dirty > (pt - 1) // 2, dirty - ep * pt, dirty + ep * pt)
+    return torch.where(ep != 0, adj, dirty)
+
+
+def mod_switch_planes(crt: torch.Tensor, dirty: torch.Tensor,
+                      primes: torch.Tensor,
+                      invp_last: torch.Tensor) -> torch.Tensor:
+    """(x_i - dirty) * p_t^-1 mod p_i for the kept planes crt uint32
+    [.., k, L], dirty int64 [.., L] from `mod_switch_dirty`, primes and
+    invp_last uint32 [k].  The difference can be negative:
+    `torch.remainder` takes the divisor's sign, as jnp's % does in the JAX
+    package.  Returns uint32 [.., k, L]."""
+    pp = modp.to_i64(primes)[:, None]
+    diff = torch.remainder(modp.to_i64(crt) - dirty[..., None, :], pp)
+    return modp.to_u32(modp.mulmod32(diff, modp.to_i64(invp_last)[:, None],
+                                     pp))
+
+
 def mod_switch(crt: torch.Tensor, primes: torch.Tensor,
                invp_last: torch.Tensor, mod_msg: int) -> torch.Tensor:
     """BGV-style modulus switch dropping the last prime plane.
 
     crt: uint32 [.., pnum, L] at level lvl; primes: uint32 [pnum] (p_t =
     primes[pnum-1] is dropped); invp_last: uint32 [pnum-1], inv(p_t, p_i).
-    Returns uint32 [.., pnum-1, L].
-
-    The dropped residue ("dirty") is moved by +/- ep*p_t so that it becomes
-    divisible by the message modulus, with the centered branch on
-    dirty > (p_t-1)/2; then (x_i - dirty) * p_t^-1 mod p_i per plane.  The
-    difference can be negative: `torch.remainder` takes the divisor's sign,
-    as jnp's % does in the JAX package.
+    Returns uint32 [.., pnum-1, L]: `mod_switch_dirty` of the dropped plane,
+    then `mod_switch_planes` of the others (a crt-sharded step runs the two
+    parts on different devices, parallel/mesh.py).
     """
-    x = modp.to_i64(crt)
-    p = modp.to_i64(primes)
-    pnum = x.shape[-2]
-    dirty = x[..., pnum - 1, :]
-    pt = p[pnum - 1]
-    ep = torch.remainder(dirty, mod_msg)
-    adj = torch.where(dirty > (pt - 1) // 2, dirty - ep * pt, dirty + ep * pt)
-    dirty = torch.where(ep != 0, adj, dirty)
-    pp = p[: pnum - 1, None]
-    diff = torch.remainder(x[..., : pnum - 1, :] - dirty[..., None, :], pp)
-    return modp.to_u32(modp.mulmod32(diff, modp.to_i64(invp_last)[:, None], pp))
+    pnum = crt.shape[-2]
+    dirty = mod_switch_dirty(modp.to_i64(crt[..., pnum - 1, :]),
+                             modp.to_i64(primes)[pnum - 1], mod_msg)
+    return mod_switch_planes(crt[..., : pnum - 1, :], dirty,
+                             primes[: pnum - 1], invp_last)

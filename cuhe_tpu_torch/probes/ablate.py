@@ -287,8 +287,8 @@ def rows(pair, n: int):
     if prod(lead):
         _cuda.launch(COUNTERS["rows"], "cuhe_ntt_rows", lo.device, pair[0],
                      pair[1], lo, hi,
-                     nk._device_powers(n, False, str(lo.device)), prod(lead),
-                     _log2(n1), _log2(n2))
+                     nk._device_powers(n, False, str(lo.device)),
+                     prod(lead) << _log2(n1), _log2(n1), _log2(n2))
     return lo, hi
 
 

@@ -18,6 +18,10 @@ and returns CRT residues ``[batch, pnum-1, n/2]`` at level lvl+1.  The
 tables are module buffers, so ``step(a_lo, a_hi, b_lo, b_hi)`` is the whole
 call.  ``plain=True`` runs the plain PyTorch versions of the kernels on the
 module's device: the reference the kernels are held against on the card.
+The ICRT (`_c2r`) and the modulus switch (`_mod_switch`) are the two steps
+that look across prime planes; ``parallel/mesh.py::ShardedGateStep``
+replaces just those two to run the step on a crt-sharded slice of the
+planes.
 """
 
 from __future__ import annotations
@@ -75,12 +79,17 @@ class GateStep(nn.Module):
                               m_ntt=(self.m_lo, self.m_hi), m_crt=self.m_crt,
                               primes=self.primes, fwd=self._fwd, inv=self._inv)
 
+    def _c2r(self, red) -> torch.Tensor:
+        return self._icrt(red, self.primes, self.bi, self.mi_words,
+                          self.m_words)
+
+    def _mod_switch(self, red) -> torch.Tensor:
+        return mod_switch(red, self.primes, self.invp_last, self.mod_msg)
+
     def forward(self, a_lo, a_hi, b_lo, b_hi) -> torch.Tensor:
         prod = modp.mul_modp((a_lo, a_hi), (b_lo, b_hi))
-        red = self._n2c_barrett(prod)
-        raw = self._icrt(red, self.primes, self.bi, self.mi_words, self.m_words)
+        raw = self._c2r(self._n2c_barrett(prod))
         r = relinearize(raw, self.ek_lo, self.ek_hi, w=self.w, knum=self.knum,
                         pnum=self.pn, n=self.n,
                         digits_mulacc=self._digits_mulacc)
-        return mod_switch(self._n2c_barrett(r), self.primes, self.invp_last,
-                          self.mod_msg)
+        return self._mod_switch(self._n2c_barrett(r))

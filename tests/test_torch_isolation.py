@@ -121,3 +121,38 @@ def test_prince_entry_points_without_a_card_raise(monkeypatch):
         Prince(seed=7)
     with pytest.raises(RuntimeError, match="no card"):
         run_prince.main(["--rounds", "1"])
+
+
+def _rank_fn(mesh):  # never reached: the checks raise before any rank starts
+    return mesh.rank
+
+
+def test_parallel_entry_points_without_a_card_raise(monkeypatch):
+    from cuhe_tpu_torch.parallel import mesh as pmesh
+    from cuhe_tpu_torch.parallel import run
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no card"):
+        run.spawn(1, 2, _rank_fn, backend="gloo")
+    with pytest.raises(RuntimeError, match="no card"):
+        run.main(["--mesh", "1x2", "--backend", "gloo"])
+    one = pmesh.Mesh(1, 1, [0], 0, device="cuda")
+    with pytest.raises(RuntimeError, match="no card"):
+        entry.sharded_entry(one)
+    with pytest.raises(RuntimeError, match="no card"):
+        entry.make_sharded_prince_l0_step(one, batch=2)
+
+
+def test_nccl_takes_one_card_per_rank(monkeypatch):
+    """NCCL on ranks that share a card, or on the CPU, raises and names
+    the Gloo backend; nothing switches the backend."""
+    from cuhe_tpu_torch.parallel import run
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    with pytest.raises(ValueError, match="backend='gloo'"):
+        run.spawn(2, 2, _rank_fn, backend="nccl")
+    with pytest.raises(ValueError, match="backend='gloo'"):
+        run.spawn(1, 2, _rank_fn, backend="nccl", device="cpu")
+    with pytest.raises(ValueError, match="backend"):
+        run.spawn(1, 2, _rank_fn, backend="mpi", device="cpu")

@@ -83,3 +83,59 @@ def test_mulmod_u32_and_conversions():
     wide = modp.to_i64(torch.from_numpy(u))
     assert wide.tolist() == [int(v) for v in u]
     np.testing.assert_array_equal(modp.to_u32(wide).numpy(), u)
+
+
+# Word values on both sides of 2^31 and at 2^32 - 1: their products cross
+# 2^63 and reach (2^32 - 1)^2, which an int64 multiply wraps modulo 2^64.
+WORDS = (0, 1, 3, (1 << 31) - 1, 1 << 31, (1 << 31) + 1, (1 << 32) - 2,
+         (1 << 32) - 1)
+# canonical values whose bit patterns sit at the int64 sign boundary and
+# near P
+CANON = (0, 1, (1 << 32) - 1, 1 << 32, (1 << 63) - 1, 1 << 63, (1 << 63) + 1,
+         P - (1 << 32), P - 2, P - 1)
+
+
+def _bits(vals):
+    """Python ints < 2^64 -> their int64 bit patterns."""
+    return torch.tensor([v - (1 << 64) if v >> 63 else v for v in vals],
+                        dtype=torch.int64)
+
+
+def _ints(bits):
+    return [v % (1 << 64) for v in bits.tolist()]
+
+
+def _wrap_case(name):
+    """(got, want) of one wrapping operation of ops/modp.py on every pair
+    of its extreme inputs, as Python ints."""
+    if name == "mul32":
+        a = [x for x in WORDS for _ in WORDS]
+        b = [y for _ in WORDS for y in WORDS]
+        lo, hi = modp.mul32(torch.tensor(a), torch.tensor(b))
+        return (list(zip(lo.tolist(), hi.tolist())),
+                [(x * y & 0xFFFFFFFF, x * y >> 32) for x, y in zip(a, b)])
+    if name == "pack64":  # word pairs up to 2^64 - 1, reduced below P
+        vals = list(CANON) + [P, P + 1, (1 << 64) - 2, (1 << 64) - 1]
+        lo = torch.tensor([v & 0xFFFFFFFF for v in vals])
+        hi = torch.tensor([v >> 32 for v in vals])
+        return _ints(modp.pack64(lo, hi)), [v % P for v in vals]
+    a = [x for x in CANON for _ in CANON]
+    b = [y for _ in CANON for y in CANON]
+    if name == "mul_bits64":
+        w = (torch.tensor([y & 0xFFFFFFFF for y in b]),
+             torch.tensor([y >> 32 for y in b]))
+        return (_ints(modp.mul_bits64(_bits(a), w)),
+                [x * y % P for x, y in zip(a, b)])
+    op = {"add_bits64": lambda x, y: (x + y) % P,
+          "sub_bits64": lambda x, y: (x - y) % P}[name]
+    got = getattr(modp, name)(_bits(a), _bits(b))
+    return _ints(got), [op(x, y) for x, y in zip(a, b)]
+
+
+@pytest.mark.parametrize("name", ["mul32", "pack64", "add_bits64",
+                                  "sub_bits64", "mul_bits64"])
+def test_wrapping_ops_at_the_extremes(name):
+    """The operations whose int64 intermediates wrap modulo 2^64 equal
+    Python ints on every pair of extreme inputs."""
+    got, want = _wrap_case(name)
+    assert got == want

@@ -380,3 +380,43 @@ def test_icrt_model_at_every_width(words):
         assert got == [int(v) for v in plain[:, col]], col
         assert hm.words_to_ints(np.array(got, np.uint32)[:, None])[0] == \
             hm.crt_combine([int(v) for v in x[:, col]], primes)
+
+
+@pytest.mark.parametrize("shards", (2, 3, 4))
+@pytest.mark.parametrize("params", (ENTRY_PARAMS, PRINCE_PARAMS),
+                         ids=("entry", "prince_l0"))
+def test_icrt_model_on_a_subset_of_the_primes(params, shards):
+    """A crt-sharded step runs the ICRT of each rank's primes against the
+    global M (parallel/mesh.py::icrt_to_raw_sharded): its unreduced sum is
+    below k M for k primes, and the kernel's one reduction still gives the
+    value in [0, M), equal to the plain version's; the ranks' partials
+    summed mod M give the ICRT of all the primes."""
+    from cuhe_tpu_torch.parallel.mesh import crt_split
+
+    primes, bi, mi, m, words = _consts(params)
+    rng = np.random.default_rng(100 + shards)
+    x = _icrt_inputs(primes, mi, m, rng, cols=16)
+    mi_words = np.stack([hm.ints_to_words([v], words)[:, 0] for v in mi])
+    m_words = torch.from_numpy(hm.ints_to_words([m], words)[:, 0]
+                               .astype(np.int64))
+    total = [0] * x.shape[1]
+    for c0, c1 in crt_split(len(primes), shards):
+        plain = crt.icrt_to_raw_plain(
+            torch.from_numpy(x[c0:c1]),
+            torch.tensor(primes[c0:c1], dtype=torch.int64),
+            torch.tensor(bi[c0:c1], dtype=torch.int64),
+            torch.from_numpy(mi_words[c0:c1].astype(np.int64)), m_words)
+        for col in range(x.shape[1]):
+            vals = [int(v) for v in x[c0:c1, col]]
+            got = icrt_model(vals, primes[c0:c1], bi[c0:c1], mi[c0:c1], m,
+                             words)
+            assert got == [int(v) for v in plain[:, col]], (c0, col)
+            part = hm.words_to_ints(np.array(got, np.uint32)[:, None])[0]
+            assert part == sum(y * mi_i for y, mi_i in zip(
+                [v * b % p for v, b, p in zip(vals, bi[c0:c1],
+                                              primes[c0:c1])],
+                mi[c0:c1])) % m
+            total[col] += part
+    for col in range(x.shape[1]):
+        assert total[col] % m == hm.crt_combine(
+            [int(v) for v in x[:, col]], primes)
