@@ -33,14 +33,21 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      a crt-sharded step's (`shard_shapes`): B3 on subsets of the primes
      against the global M, B4 on eval-key slices of 13 and 12 planes, B1's
      column- and row-block passes over 2, 4 and 8 ranks (column blocks of
-     64, 32 and 16);
+     64, 32 and 16); and the elementwise kernels of csrc/pointwise.cu (K1
+     the Z_P product, K2 Barrett's combine, K3 the modulus switch, K4 the
+     CRT add; `pointwise_shapes`) at prince_l0's shapes, timed against
+     their plain versions and byte bounds, at simple_dhs's and the entry
+     ring's (mod_len < n/2), PRINCE levels 1, 23 and 24, a (2, 2) rank's
+     planes with the dropped plane apart, and at their extremes;
   3. the entry configuration (16k ring, 4 primes, batch 2): the step on the
      card with the kernels equals the step on the CPU with the plain
      versions (which the tests hold against the JAX package);
   4. PRINCE level 0 (n = 32768, 25 primes, 40 digits, batch 32): the first
      two ciphertexts against the plain path on the card, then the launch
-     counts of one batch-32 step (the main path), its time and peak memory,
-     and the device time of each kernel in it (torch.profiler);
+     counts of one batch-32 step (the main path: K1 5, K2 2 and K3 1
+     launches, or the run fails), its time and peak memory, and the device
+     time of each kernel in it, the port's and every PyTorch kernel left
+     (torch.profiler);
   5. the probes (cuhe_tpu_torch/probes, `python3 -m cuhe_tpu_torch.probes`):
      every probe kernel and NTT pass against its plain version on the card
      (P1's TMA + wgmma dot at 16 extra shapes and fills: the 128-wide tile,
@@ -54,15 +61,16 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      keys, ciphertexts and gate outputs equal the CPU's; the shipped
      CuDHS(5, 2, 1, 61, 20, 8191) keygen (timed by phase), XOR, NOT and
      AND -> relin -> modSwitch decrypting right, a CuDHS from the private
-     key string, the launch counts of one AND gate (every B kernel must
-     launch), each gate's time and the AND gate's idle share;
+     key string, the launch counts of one AND gate (every B kernel and K1-K3
+     must launch), each gate's time and the AND gate's idle share;
   7. homomorphic PRINCE (cuhe_tpu_torch/models/prince.py): (a) the light
      ring CuDHS(5, 2, 16, 50, 25, 8191, seed=13), card == CPU through S-box
      layer 1, rounds 0 and 1 right, checkpoint after layer 1 and resume
      bit-equal (`prince_light`); (b) Prince(seed=7) at the full
      CuDHS(25, 2, 16, 25, 25, 21845): keygen timed by phase, then the
      known-answer circuit through all 12 S-box layers, each layer's time,
-     launches (every B kernel in every layer), peak memory and decrypt,
+     launches (every B kernel and K1-K4 in every layer), peak memory and
+     decrypt,
      rounds 0-3 and the final state against the published vectors
      (`prince_full`);
   8. parallel (cuhe_tpu_torch/parallel, `parallel_phase`): the device
@@ -71,10 +79,11 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      on this card over Gloo (`phase8_rank`): (a) the entry step on meshes
      (2, 2) and (1, 3) (2 + 1 + 1 planes: the last rank holds only the
      dropped prime) and (b) the PRINCE level-0 step at batch 32 on (2, 2),
-     each gathered output bit-equal to phases 3 and 4 and every B kernel
-     launched on every rank, with each rank's step time, peak memory,
-     eval-key bytes and time in collectives; (c) one n = 32768 NTT across 8,
-     4 and 2 ranks equal to B1's; (d) NCCL at (1, device count) against the
+     each gathered output bit-equal to phases 3 and 4 and every B kernel,
+     K1 and K2 launched on every rank (K3 where a rank keeps planes), with
+     each rank's step time, peak memory, eval-key bytes and time in
+     collectives; (c) one n = 32768 NTT across 8, 4 and 2 ranks equal to
+     B1's; (d) NCCL at (1, device count) against the
      unsharded step where there are two cards or more, else the line
      `nccl: skipped: one device`.
 Every kernel time is held against its bound: a time under it fails the run.
@@ -95,12 +104,20 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
+# the elementwise kernels (csrc/pointwise.cu) by launch counter, and their
+# launches in one gate step (the AND, Barrett's two products twice; the
+# combine twice; the switch); K4 runs on PRINCE's path, not the step's
+POINTWISE_STEP_LAUNCHES = {"zp_mul": 5, "barrett_combine": 2,
+                           "mod_switch": 1}
+
+
 def profile_step(run, step_ms: float, card: str, label: str) -> None:
     """Device time of one run by kernel (torch.profiler), split into the
     port's CUDA kernels and PyTorch's own kernels, and the idle share
-    against the run's CUDA-event time."""
+    against the run's CUDA-event time (`probes/step_time.py::split`, which
+    the A/B timings of the step use too)."""
     import torch
-    from torch.autograd import DeviceType
+    from cuhe_tpu_torch.probes.step_time import split
     from torch.profiler import ProfilerActivity, profile
 
     run()
@@ -108,26 +125,21 @@ def profile_step(run, step_ms: float, card: str, label: str) -> None:
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         run()
         torch.cuda.synchronize()
-    rows = sorted(((e.key, e.self_device_time_total / 1e3, e.count)
-                   for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA),
-                  key=lambda r: -r[1])
-    busy = sum(ms for _, ms, _ in rows)
+    sp = split(prof, step_ms)
+    busy, ours = sp["busy_ms"], sp["port_kernels_ms"]
     if busy <= 0:
         log("[profile] the profiler recorded no device time: not measured")
         return
-    port = [r for r in rows if any(
-        s in r[0] for s in ("fwd_cols", "ntt_rows", "inv_cols", "icrt_kernel",
-                            "relin_mulacc_kernel"))]
-    ours = sum(ms for _, ms, _ in port)
     log(f"[profile] {label}: device busy {busy:.3f} ms "
-        f"(port kernels {ours:.3f} ms, PyTorch kernels {busy - ours:.3f} ms), "
-        f"{len(rows)} kernel names, idle share "
-        f"{max(0.0, 1 - busy / step_ms):.3f} of {step_ms:.3f} ms [{card}]")
-    for k, ms, cnt in rows[:12]:
-        log(f"[profile]   {ms:9.3f} ms  x{cnt:<5d} {k[:90]}")
-    for k, ms, cnt in port:  # device time of each port kernel in the step
+        f"(port kernels {ours:.3f} ms, PyTorch kernels "
+        f"{sp['pytorch_kernels_ms']:.3f} ms, share "
+        f"{sp['pytorch_share']:.3f}), {len(sp['rows'])} kernel names, idle "
+        f"share {sp['idle_share']:.3f} of {step_ms:.3f} ms [{card}]")
+    for k, ms, cnt in sp["port_rows"]:  # device time of each port kernel
         log(f"[profile] port {ms:9.3f} ms  x{cnt:<5d} {k[:90]}")
+    for k, ms, cnt in sp["rows"]:  # every PyTorch kernel left
+        if (k, ms, cnt) not in sp["port_rows"]:
+            log(f"[profile] torch {ms:9.3f} ms  x{cnt:<5d} {k[:90]}")
 
 
 def dhs_shapes(dev, card, compare, rand_u32, rand_pair) -> None:
@@ -333,6 +345,284 @@ def step_kernel_models(batch: int, pn: int, n: int, words: int, c: int,
                            {"mul64": c * batch * prods}),
         "relin_mulacc": mulacc_model(batch, pn, n, c, False),
     }
+
+
+def zp_mul_model(count: int, b_count: int) -> tuple:
+    """(bytes, multiplies) of K1 (`pointwise.ntt_mul`): `count` pair
+    words of a and of the output, b's `b_count` (broadcast) read once, one
+    64 x 64-bit product a word."""
+    return (count * 16 + b_count * 8, {"mul64": count})
+
+
+def barrett_combine_model(rows: int, pnum: int, n: int, mod_len: int):
+    """(bytes, multiplies) of K2 (`barrett.barrett_combine`) on `rows`
+    rows of n residues: f and c2 below n/2, c1 where the high range
+    [mod_len, 2 mod_len) meets them, the three words at index mod_len where
+    it lies past n/2, the output's n/2, and m_crt below mod_len - 1 and the
+    primes once.  No multiplies."""
+    half = n // 2
+    c1 = max(0, min(2 * mod_len, half) - mod_len)
+    per_row = 2 * half + c1 + (3 if mod_len >= half else 0) + half
+    return (rows * per_row * 4 + pnum * (min(mod_len - 1, half) + 1) * 4, {})
+
+
+def mod_switch_model(rows: int, k: int, length: int) -> tuple:
+    """(bytes, multiplies) of K3 (`pointwise.mod_switch_dropped`): each
+    row's k kept planes and its dropped plane read once, k planes written,
+    the k + 1 primes and k inverses once; one 32 x 32-bit product an output
+    word (the difference times p_t^-1)."""
+    return (rows * (2 * k + 1) * length * 4 + (2 * k + 1) * 4,
+            {"mad32": rows * k * length})
+
+
+def crt_add_model(rows: int, pnum: int, length: int) -> tuple:
+    """(bytes, multiplies) of K4 (`pointwise.crt_add`): x, y and the
+    output once, the primes once."""
+    return (3 * rows * length * 4 + pnum * 4, {})
+
+
+def pointwise_shapes(dev, card, compare, rand_u32, rand_pair, rates) -> dict:
+    """Phase 2 for the elementwise Z_P / CRT kernels (csrc/pointwise.cu):
+    K1 `ntt_mul`, K2 `barrett_combine`, K3 `mod_switch_dropped` and K4
+    `crt_add`, each bit for bit against its plain version
+      * at prince_l0's shapes (32 ciphertexts, 25 planes, n = 32768: the
+        AND, Barrett's products by a [25, n] table, the combine with
+        mod_len = n/2, the mod switch to 24 planes, the S-box's and the
+        linear layers' adds), each timed against its plain version and its
+        bound;
+      * at simple_dhs's and the entry ring's (n = 16384, mod_len = 8190 <
+        n/2: output coefficients 8190, 8191 take the high-half subtract),
+        with no batch axis and a batch of 1;
+      * at PRINCE level 1 (64 ciphertexts, 24 planes) and levels 23-24 (2
+        and 1 planes);
+      * at a (2, 2) rank's shard shapes (16 ciphertexts, 13 / 12 planes,
+        the dropped plane given apart, as the broadcast gives it), the two
+        ranks' kept planes together equal to the unsharded switch;
+      * at the extremes: pair words P - 1, P and 2^64 - 1 (hi P_HI) in
+        every pairing, residues p - 1 and 0, a plane whose coefficient
+        x^mod_len is 0, dirty residues at (p_t - 1)/2 and either side of
+        it, with mod_msg 2, 3 and 16 (ep != 0).
+    Returns the prince_l0 timings by kernel name (the kernels line)."""
+    import torch
+    from cuhe_tpu_torch import entry as port_entry
+    from cuhe_tpu_torch import hostmath as hm
+    from cuhe_tpu_torch.ops import barrett, modp
+    from cuhe_tpu_torch.ops import pointwise as pw
+    from cuhe_tpu_torch.parallel.mesh import crt_split
+    from cuhe_tpu_torch.params import make_params
+    from cuhe_tpu_torch.probes.timing import bound, check_bound, cuda_ms
+
+    def u32(vals):
+        return modp.to_u32(torch.tensor(vals, dtype=torch.int64, device=dev))
+
+    def residues(shape, primes):
+        """Random residues of [.., pnum, L] mod the planes' primes."""
+        return modp.to_u32(torch.remainder(
+            modp.to_i64(rand_u32(shape)), modp.to_i64(primes)[:, None]))
+
+    def ring(params):
+        pr = make_params(*params)
+        ps = [int(v) for v in pr.crt_primes]
+        return pr, ps
+
+    def switch_args(ps, pn):
+        """(primes [pn], invp_last [pn - 1]) of a level with pn planes."""
+        pt = ps[pn - 1]
+        return u32(ps[:pn]), u32([hm.modinv(pt % p, p) for p in ps[:pn - 1]])
+
+    def check_all(tag, pr, ps, lead, pn, mod_msg=None):
+        """K1-K4 at one ring, level width pn and leading shape."""
+        n, mod_len = pr.ntt_len, pr.mod_len
+        half = n // 2
+        p = u32(ps[:pn])
+        a, b = rand_pair(lead + (pn, n)), rand_pair(lead + (pn, n))
+        tab = rand_pair((pn, n))
+        compare("zp_mul", f"{tag} x {tuple(a[0].shape)}",
+                lambda: pw.ntt_mul(a, b), lambda: pw.ntt_mul_plain(a, b))
+        compare("zp_mul", f"{tag} x {tuple(a[0].shape)} by [{pn}, {n}]",
+                lambda: pw.ntt_mul(a, tab), lambda: pw.ntt_mul_plain(a, tab))
+        f, c1, c2 = (residues(lead + (pn, n), p) for _ in range(3))
+        mc = residues((pn, half), p)
+        compare("barrett_combine", f"{tag} {tuple(f.shape)} mod_len {mod_len}",
+                lambda: barrett.barrett_combine(f, c1, c2, mc, p,
+                                                mod_len=mod_len, n=n),
+                lambda: barrett.barrett_combine_plain(f, c1, c2, mc, p,
+                                                      mod_len=mod_len, n=n))
+        x, y = residues(lead + (pn, half), p), residues(lead + (pn, half), p)
+        compare("crt_add", f"{tag} {tuple(x.shape)}",
+                lambda: pw.crt_add(x, y, p), lambda: pw.crt_add_plain(x, y, p))
+        if pn > 1:
+            sp, inv = switch_args(ps, pn)
+            msg = pr.mod_msg if mod_msg is None else mod_msg
+            compare("mod_switch", f"{tag} {tuple(x.shape)} -> {pn - 1} planes",
+                    lambda: pw.mod_switch(x, sp, inv, msg),
+                    lambda: pw.mod_switch_plain(x, sp, inv, msg))
+
+    # ---- prince_l0: the step's shapes, timed ----
+    pr, ps = ring(port_entry.PRINCE_PARAMS)
+    n, pn, batch, mod_len = pr.ntt_len, pr.num_crt_prime, 32, pr.mod_len
+    half = n // 2
+    p = u32(ps)
+    timings = {}
+
+    def timed(name, tag, kern, plain, model):
+        compare(name, tag, kern, plain)
+        ms, plain_ms = cuda_ms(kern, 20), cuda_ms(plain, 3)
+        b_ms, b_by = bound(*model, rates)
+        check_bound(f"{name} {tag}", ms, b_ms)
+        log(f"[time] {name} {tag}: kernel {ms:.4f} ms, plain {plain_ms:.4f} "
+            f"ms, bound {b_ms:.4f} ms ({b_by}), {model[0] / 1e6:.1f} MB "
+            f"[{card}]")
+        return dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+
+    a, b = rand_pair((batch, pn, n)), rand_pair((batch, pn, n))
+    count = a[0].numel()
+    timed("zp_mul", f"prince_l0 AND x{batch}", lambda: pw.ntt_mul(a, b),
+          lambda: pw.ntt_mul_plain(a, b), zp_mul_model(count, count))
+    del b
+    u = rand_pair((pn, n))
+    timings["zp_mul"] = timed(
+        "zp_mul", f"prince_l0 Barrett product x{batch} by [{pn}, {n}]",
+        lambda: pw.ntt_mul(a, u), lambda: pw.ntt_mul_plain(a, u),
+        zp_mul_model(count, u[0].numel()))
+    del a, u
+    f, c1, c2 = (residues((batch, pn, n), p) for _ in range(3))
+    # coefficient x^mod_len of ciphertext 0 zero in every plane: t = 0
+    for v in (f, c1, c2):
+        v[0, :, mod_len] = 0
+    mc = residues((pn, half), p)
+    timings["barrett_combine"] = timed(
+        "barrett_combine", f"prince_l0 x{batch}",
+        lambda: barrett.barrett_combine(f, c1, c2, mc, p, mod_len=mod_len,
+                                        n=n),
+        lambda: barrett.barrett_combine_plain(f, c1, c2, mc, p,
+                                              mod_len=mod_len, n=n),
+        barrett_combine_model(batch * pn, pn, n, mod_len))
+    del f, c1, c2
+    crt_in = residues((batch, pn, half), p)
+    sp, inv = switch_args(ps, pn)
+    timings["mod_switch"] = timed(
+        "mod_switch", f"prince_l0 x{batch} {pn} -> {pn - 1} planes",
+        lambda: pw.mod_switch(crt_in, sp, inv, pr.mod_msg),
+        lambda: pw.mod_switch_plain(crt_in, sp, inv, pr.mod_msg),
+        mod_switch_model(batch, pn - 1, half))
+    # the S-box's adds at level 1 (16 ciphertexts, 24 planes; the kernels
+    # line) and the linear layers' at level 0 (64 ciphertexts, 25 planes)
+    p1 = u32(ps[:pn - 1])
+    x, y = residues((16, pn - 1, half), p1), residues((16, pn - 1, half), p1)
+    timings["crt_add"] = timed(
+        "crt_add", "prince S-box x16, 24 planes",
+        lambda: pw.crt_add(x, y, p1), lambda: pw.crt_add_plain(x, y, p1),
+        crt_add_model(16 * (pn - 1), pn - 1, half))
+    x, y = residues((64, pn, half), p), residues((64, pn, half), p)
+    timed("crt_add", "prince linear layer x64, 25 planes",
+          lambda: pw.crt_add(x, y, p), lambda: pw.crt_add_plain(x, y, p),
+          crt_add_model(64 * pn, pn, half))
+    del x, y, crt_in
+    torch.cuda.empty_cache()
+
+    # ---- the other rings and levels ----
+    for name, params in (("simple_dhs", port_entry.SIMPLE_DHS_PARAMS),
+                         ("entry", port_entry.ENTRY_PARAMS)):
+        rpr, rps = ring(params)
+        for lead in ((), (1,), (2,)):
+            check_all(f"{name} lvl 0, lead {lead}", rpr, rps, lead,
+                      rpr.num_crt_prime)
+    for lvl in (1, pr.depth - 2, pr.depth - 1):
+        check_all(f"prince lvl {lvl} x64", pr, ps, (64,),
+                  pr.num_crt_prime_lvl(lvl))
+    torch.cuda.empty_cache()
+
+    # ---- a (2, 2) rank's shapes: 16 ciphertexts, 13 / 12 planes ----
+    red = residues((16, pn, half), p)
+    whole = pw.mod_switch_plain(red, sp, inv, pr.mod_msg)
+    dropped = red[:, pn - 1].contiguous()  # what the broadcast delivers
+    kept = []
+    for c0, c1_ in crt_split(pn, 2):
+        k = min(c1_, pn - 1) - c0
+        mine = red[:, c0:c1_].contiguous()
+        args = (mine, dropped, u32(ps[c0:c0 + k] + [ps[pn - 1]]),
+                inv[c0:c0 + k].contiguous(), pr.mod_msg)
+        got = pw.mod_switch_dropped(*args)
+        compare("mod_switch", f"rank planes {c0}..{c1_ - 1}, {k} kept, "
+                "dropped plane apart", lambda: got,
+                lambda: pw.mod_switch_dropped_plain(*args))
+        kept.append(got)
+        check_all(f"rank planes {c0}..{c1_ - 1} x16", pr, ps[c0:c1_], (16,),
+                  c1_ - c0)
+    compare("mod_switch", "(2, 2) ranks' kept planes together",
+            lambda: torch.cat(kept, dim=1), lambda: whole)
+    # a dropped plane of another dtype raises; its words are not taken as
+    # uint32 (the front end views them as int32 to pass a row stride)
+    for dt in (torch.int32, torch.float32):
+        try:
+            pw.mod_switch_dropped(args[0], dropped.view(dt), *args[2:])
+        except TypeError:
+            continue
+        raise AssertionError(f"mod_switch_dropped took a {dt} dropped plane")
+    log("[phase 2] mod_switch_dropped: an int32 or a float32 dropped plane "
+        "raises TypeError")
+    del red, whole, dropped, kept
+
+    # ---- extremes ----
+    P = modp.P
+    words = (0, 1, P - 1, P, P + 1, (1 << 32) - 1, 1 << 32, (1 << 63) + 5,
+             (1 << 64) - 2, (1 << 64) - 1)
+    av = [x for x in words for _ in words]
+    bv = [y for _ in words for y in words]
+    av += [0] * (-len(av) % 4)
+    bv += [0] * (-len(bv) % 4)
+
+    def pair(vals):
+        return (u32([v & 0xFFFFFFFF for v in vals]),
+                u32([v >> 32 for v in vals]))
+
+    ea, eb = pair(av), pair(bv)
+    got = pw.ntt_mul(ea, eb)
+    want = pw.ntt_mul_plain(ea, eb)
+    compare("zp_mul", f"extremes ({len(words)} x {len(words)} words)",
+            lambda: got, lambda: want)
+    vals = modp.u64_from_pair(*got).tolist()
+    if vals != [x * y % P for x, y in zip(av, bv)]:
+        raise AssertionError("zp_mul extremes != Python ints")
+    rpr, rps = ring(port_entry.SIMPLE_DHS_PARAMS)
+    rn, rpn, rml = rpr.ntt_len, rpr.num_crt_prime, rpr.mod_len
+    rp = u32(rps)
+    pm1 = modp.to_u32(modp.to_i64(rp)[:, None].expand(rpn, rn) - 1)
+    zero = torch.zeros_like(pm1)
+    for name, (f, c1, c2) in {"p - 1, 0, 0": (pm1, zero, zero),
+                              "0, p - 1, p - 1": (zero, pm1, pm1),
+                              "p - 1 everywhere": (pm1, pm1, pm1),
+                              "0 everywhere": (zero, zero, zero)}.items():
+        mc = residues((rpn, rn // 2), rp)
+        compare("barrett_combine", f"simple_dhs extremes f, c1, c2 = {name}",
+                lambda: barrett.barrett_combine(f, c1, c2, mc, rp,
+                                                mod_len=rml, n=rn),
+                lambda: barrett.barrett_combine_plain(f, c1, c2, mc, rp,
+                                                      mod_len=rml, n=rn))
+    for name, x in (("p - 1", pm1), ("0", zero)):
+        x = x[:, : rn // 2].contiguous()
+        compare("crt_add", f"simple_dhs extremes {name} + {name}",
+                lambda: pw.crt_add(x, x, rp),
+                lambda: pw.crt_add_plain(x, x, rp))
+    sp, inv = switch_args(rps, rpn)
+    pt = rps[rpn - 1]
+    centre = (pt - 1) // 2
+    special = [0, 1, 2, 3, centre - 2, centre - 1, centre, centre + 1,
+               centre + 2, centre + 3, pt - 3, pt - 2, pt - 1]
+    crt_e = residues((3, rpn, 64), rp)
+    crt_e[:, rpn - 1, : len(special)] = u32(special)
+    crt_e[1, : rpn - 1] = modp.to_u32(modp.to_i64(rp[: rpn - 1])[:, None]
+                                      .expand(rpn - 1, 64) - 1)
+    crt_e[2, : rpn - 1] = 0
+    for msg in (2, 3, 16):
+        compare("mod_switch", f"simple_dhs extremes, dirty at (p_t - 1)/2 "
+                f"+/- 3, mod_msg {msg}",
+                lambda: pw.mod_switch(crt_e, sp, inv, msg),
+                lambda: pw.mod_switch_plain(crt_e, sp, inv, msg))
+    log(f"[kernel] pointwise K1-K4: bit-exact at every shape and extreme "
+        f"[{card}]")
+    return timings
 
 
 def modp_wrap_extremes(dev) -> None:
@@ -669,7 +959,7 @@ def parallel_phase(dev, card, rates, rand_u32, rand_pair, entry_out,
     log(f"[parallel] 8 ranks over Gloo on cuda:0 in "
         f"{time.perf_counter() - t1:.1f} s")
     b_kernels = ("ntt_fwd", "ntt_inv_modcrt", "icrt", "ntt_fwd_digits",
-                 "relin_mulacc")
+                 "relin_mulacc", "zp_mul", "barrett_combine")
     for name, want, n_ranks in (("entry 2x2", entry_out, 4),
                                 ("entry 1x3", entry_out, 3),
                                 ("prince 2x2", prince_out, 4)):
@@ -687,8 +977,12 @@ def parallel_phase(dev, card, rates, rand_u32, rand_pair, entry_out,
                 raise AssertionError(f"{name} rank {r['rank']}: {missing} "
                                      "not launched")
             log(run.report(r, f"parallel {name} gloo, {card}"))
+        # the last rank of (1, 3) keeps no plane of the switch
+        if not any(r["launches"].get("mod_switch", 0) for r in res):
+            raise AssertionError(f"{name}: mod_switch launched on no rank")
         log(f"[parallel] {name}: gathered {got.shape} == the unsharded card "
-            f"output bit for bit, every B kernel launched on every rank")
+            f"output bit for bit, every B kernel, zp_mul and barrett_combine "
+            f"launched on every rank")
     block_launches = {}
     for s in (8, 4, 2):
         for r in ranks[:s]:
@@ -893,7 +1187,7 @@ def dhs_scheme(dev, card) -> None:
     launches = dict(_cuda.LAUNCHES)
     log(f"[dhs] launches in one AND -> relin -> modSwitch: {launches}")
     for name in ("ntt_fwd", "ntt_inv_modcrt", "icrt", "ntt_fwd_digits",
-                 "relin_mulacc"):
+                 "relin_mulacc", *POINTWISE_STEP_LAUNCHES):
         if launches.get(name, 0) < 1:
             raise AssertionError(f"simple_dhs AND gate: {name} not launched")
     if not torch.equal(got.data.view(torch.int32), want.data.view(torch.int32)):
@@ -1062,7 +1356,7 @@ def prince_full(dev, card) -> None:
         if want is not None and bits != want:
             raise AssertionError(f"PRINCE round {rd}: {bits} != {want}")
         for name in ("ntt_fwd", "ntt_inv_modcrt", "icrt", "ntt_fwd_digits",
-                     "relin_mulacc"):
+                     "relin_mulacc", *POINTWISE_STEP_LAUNCHES, "crt_add"):
             if launches.get(name, 0) < 1:
                 raise AssertionError(f"PRINCE layer {len(rows) + 1}: {name} "
                                      f"not launched")
@@ -1095,6 +1389,7 @@ def prince_full(dev, card) -> None:
     # where the time of the costliest layer (level 0, 25 primes) goes
     profile_step(lambda: p._sbox(first["state"], 0, False), rows[0][0], card,
                  "S-box layer 1 (level 0 -> 2)")
+    return launches
 
 
 def main() -> int:
@@ -1436,6 +1731,8 @@ def main() -> int:
     dhs_shapes(dev, card, compare, rand_u32, rand_pair)
     prince_shapes(dev, card, compare, rand_u32, rand_pair)
     shard_shapes(dev, card, compare, rand_u32, rand_pair)
+    pw_timings = pointwise_shapes(dev, card, compare, rand_u32, rand_pair,
+                                  rates)
 
     # ---- 3. entry configuration: card == CPU ------------------------------
     step_cpu, args_cpu = port_entry.entry(device="cpu")
@@ -1471,6 +1768,11 @@ def main() -> int:
     torch.cuda.synchronize()
     launches = dict(_cuda.LAUNCHES)
     log(f"[prince] launches in one batch-32 step: {launches}")
+    for name, want_n in POINTWISE_STEP_LAUNCHES.items():
+        if launches.get(name, 0) != want_n:
+            raise AssertionError(f"prince step: {name} launched "
+                                 f"{launches.get(name, 0)} times, expected "
+                                 f"{want_n}")
     if tuple(out.shape) != (32, 24, 16384) or not same(out[:2].contiguous(), got2):
         raise AssertionError("prince: batch-32 rows 0..1 != the 2-ciphertext run")
     torch.cuda.reset_peak_memory_stats()
@@ -1503,7 +1805,7 @@ def main() -> int:
     # ---- 7. homomorphic PRINCE ----------------------------------------------
     t0 = time.perf_counter()
     prince_light(dev, card)
-    prince_full(dev, card)
+    prince_launches = prince_full(dev, card)
     log(f"[prince] phase 7 in {time.perf_counter() - t0:.1f} s")
 
     # ---- 8. multi-device: the sharded step and NTT --------------------------
@@ -1530,6 +1832,21 @@ def main() -> int:
                         "max_abs_err": 0, "ms": r["ms"],
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"], "library_ms": None})
+    # the elementwise kernels: launches in phase 4's step (K1-K3) and in
+    # phase 7's 12 S-box layers (K4)
+    path_launches = {k: launches.get(k, 0) for k in POINTWISE_STEP_LAUNCHES}
+    path_launches["crt_add"] = prince_launches.get("crt_add", 0)
+    for name, rep in (("zp_mul", "cuhe_tpu/ops/modp.py:188"),
+                      ("barrett_combine", "cuhe_tpu/ops/barrett.py:29"),
+                      ("mod_switch", "cuhe_tpu/ops/pointwise.py:75"),
+                      ("crt_add", "cuhe_tpu/ops/pointwise.py:38")):
+        if path_launches[name] < 1:
+            raise AssertionError(f"{name} was not launched on its path")
+        kernels.append({"name": name, "route": "cuda",
+                        "source": "cuhe_tpu_torch/csrc/pointwise.cu",
+                        "replaces": rep, "launches": path_launches[name],
+                        "max_abs_err": 0, **pw_timings[name],
+                        "library_ms": None})
     # B1's block passes: launches in phase 8 (c), summed over the ranks
     for name, r in block_timings.items():
         kernels.append({"name": name, "route": "cuda",

@@ -210,7 +210,7 @@ class Prince:
         at level lvl -> the state at level lvl + 2 (Prince.cu:204-322,
         339-460)."""
         ctx = self.ctx
-        mul = modp.mul_modp
+        mul = pw.ntt_mul
         cat = torch.cat
 
         # nibble bits a, b, c, d: [4, 16, pn, clen], to the NTT domain

@@ -44,6 +44,11 @@ _SIGNATURES = {
     "cuhe_ntt_fwd_cols_block": "pppp" + "iiiii",
     "cuhe_icrt": "pppppp" + "iiii",
     "cuhe_relin_mulacc": "pppppppp" + "iiiiiiii",
+    # the elementwise Z_P / CRT layer (csrc/pointwise.cu)
+    "cuhe_zp_mul": "pppppp" + "ii",
+    "cuhe_barrett_combine": "pppppp" + "iiii",
+    "cuhe_mod_switch": "ppppp" + "iiiiii",
+    "cuhe_crt_add": "pppp" + "iii",
     "cuhe_calib": "p" + "iii",
     # the NTT passes one at a time (probes/ablate.py)
     "cuhe_ntt_cols_io": "pppp" + "iii",

@@ -41,11 +41,12 @@ import collections
 import time
 from dataclasses import dataclass, field
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
 from ..context import Context
-from ..ops import crt, modp, ntt
+from ..ops import crt, ntt
 from ..ops import ntt_kernels as nk
 from ..ops import pointwise as pw
 from ..step import GateStep
@@ -310,8 +311,12 @@ class ShardedGateStep(GateStep):
             setattr(self, name, _cut(getattr(self, name), 0, c0, c1))
         self.ek_lo = _cut(self.ek_lo, 1, c0, c1)
         self.ek_hi = _cut(self.ek_hi, 1, c0, c1)
-        self.invp_last = _cut(self.invp_last, 0, c0,
-                              c0 + self.kept[mesh.crt.index])
+        k = self.kept[mesh.crt.index]
+        self.invp_last = _cut(self.invp_last, 0, c0, c0 + k)
+        # the modulus switch's primes: this rank's kept planes', then p_t
+        self.register_buffer("switch_primes", torch.from_numpy(np.array(
+            list(ctx.primes_np[c0:c0 + k]) + [self.p_last],
+            dtype=np.uint32)).to(self.primes.device), persistent=False)
         self.pn = c1 - c0
 
     def _c2r(self, red) -> torch.Tensor:
@@ -327,10 +332,8 @@ class ShardedGateStep(GateStep):
             dirty = torch.empty(red.shape[:-2] + red.shape[-1:],
                                 dtype=red.dtype, device=red.device)
         axis.broadcast(dirty, owner)
-        d = pw.mod_switch_dirty(modp.to_i64(dirty), self.p_last, self.mod_msg)
-        k = self.kept[axis.index]
-        mine = pw.mod_switch_planes(red[..., :k, :], d, self.primes[:k],
-                                    self.invp_last)
+        mine = pw.mod_switch_dropped(red, dirty, self.switch_primes,
+                                     self.invp_last, self.mod_msg)
         return gather_planes(mine, axis, self.kept)
 
 

@@ -371,3 +371,37 @@ def test_module_entry_point_fails_without_a_card():
     assert out.returncode != 0
     assert "no card" in out.stderr
     assert not out.stdout.strip()
+
+
+def test_step_split_separates_port_kernels_and_idle_time():
+    """`step_time.split` (the A/B step timings and chip_smoke.py's
+    profiles): device rows only, the port's kernels by name, the PyTorch
+    share of the busy time, the idle share against the run's time; no
+    device time gives no shares."""
+    from types import SimpleNamespace
+
+    from torch.autograd import DeviceType
+
+    from cuhe_tpu_torch.probes import step_time
+
+    def ev(key, us, count, dt=DeviceType.CUDA):
+        return SimpleNamespace(key=key, self_device_time_total=us,
+                               count=count, device_type=dt)
+
+    events = [ev("void zp_mul_kernel<4>(...)", 3000.0, 5),
+              ev("void at::native::elementwise_kernel<...>", 1000.0, 4),
+              ev("cudaLaunchKernel", 9000.0, 9, DeviceType.CPU),
+              ev("void barrett_combine_kernel(...)", 4000.0, 2)]
+    sp = step_time.split(SimpleNamespace(key_averages=lambda: events), 10.0)
+    assert [r[0] for r in sp["rows"]] == [events[3].key, events[0].key,
+                                          events[1].key]
+    assert sp["port_rows"] == [(events[3].key, 4.0, 2),
+                               (events[0].key, 3.0, 5)]
+    assert (sp["busy_ms"], sp["port_kernels_ms"],
+            sp["pytorch_kernels_ms"]) == (8.0, 7.0, 1.0)
+    assert sp["pytorch_share"] == pytest.approx(0.125)
+    assert sp["idle_share"] == pytest.approx(0.2)
+    none = step_time.split(SimpleNamespace(key_averages=lambda: events[2:3]),
+                           10.0)
+    assert none["busy_ms"] == 0 and none["rows"] == []
+    assert none["pytorch_share"] is None and none["idle_share"] is None
