@@ -38,14 +38,22 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      CRT add; `pointwise_shapes`) at prince_l0's shapes, timed against
      their plain versions and byte bounds, at simple_dhs's and the entry
      ring's (mod_len < n/2), PRINCE levels 1, 23 and 24, a (2, 2) rank's
-     planes with the dropped plane apart, and at their extremes;
+     planes with the dropped plane apart, and at their extremes; and the
+     elementwise kernels off the step (K5 RAW -> CRT, K6 the Z_P sum, K7
+     the CRT plaintext and constant ops, K8 the sharded ICRT's split and
+     combine, csrc/crt_ops.cu and pointwise.cu; `crt_ops_shapes`), timed at
+     prince_l0's shapes and a (2, 2) and (1, 4) rank's, and checked at
+     simple_dhs's (keygen's batch of 141), the entry and light PRINCE
+     rings', PRINCE levels 1, 23, 24, every word count 1..32, prime counts
+     across the kernel's blocks, and their extremes;
   3. the entry configuration (16k ring, 4 primes, batch 2): the step on the
      card with the kernels equals the step on the CPU with the plain
      versions (which the tests hold against the JAX package);
   4. PRINCE level 0 (n = 32768, 25 primes, 40 digits, batch 32): the first
      two ciphertexts against the plain path on the card, then the launch
      counts of one batch-32 step (the main path: K1 5, K2 2 and K3 1
-     launches, or the run fails), its time and peak memory, and the device
+     launches and no plain elementwise version called on the card, or the
+     run fails), its time and peak memory, and the device
      time of each kernel in it, the port's and every PyTorch kernel left
      (torch.profiler);
   5. the probes (cuhe_tpu_torch/probes, `python3 -m cuhe_tpu_torch.probes`):
@@ -61,16 +69,18 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      keys, ciphertexts and gate outputs equal the CPU's; the shipped
      CuDHS(5, 2, 1, 61, 20, 8191) keygen (timed by phase), XOR, NOT and
      AND -> relin -> modSwitch decrypting right, a CuDHS from the private
-     key string, the launch counts of one AND gate (every B kernel and K1-K3
-     must launch), each gate's time and the AND gate's idle share;
+     key string, the launch counts of the encryption (K5 must launch), of
+     one XOR (K6), NOT (K7) and AND gate (every B kernel and K1-K3), none
+     with a plain elementwise version on the card, and each gate's time,
+     device busy time, PyTorch-kernel share and idle share;
   7. homomorphic PRINCE (cuhe_tpu_torch/models/prince.py): (a) the light
      ring CuDHS(5, 2, 16, 50, 25, 8191, seed=13), card == CPU through S-box
      layer 1, rounds 0 and 1 right, checkpoint after layer 1 and resume
      bit-equal (`prince_light`); (b) Prince(seed=7) at the full
      CuDHS(25, 2, 16, 25, 25, 21845): keygen timed by phase, then the
      known-answer circuit through all 12 S-box layers, each layer's time,
-     launches (every B kernel and K1-K4 in every layer), peak memory and
-     decrypt,
+     launches (every B kernel, K1-K4 and K7 in every layer, and no plain
+     elementwise version), peak memory and decrypt,
      rounds 0-3 and the final state against the published vectors
      (`prince_full`);
   8. parallel (cuhe_tpu_torch/parallel, `parallel_phase`): the device
@@ -80,7 +90,8 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      (2, 2) and (1, 3) (2 + 1 + 1 planes: the last rank holds only the
      dropped prime) and (b) the PRINCE level-0 step at batch 32 on (2, 2),
      each gathered output bit-equal to phases 3 and 4 and every B kernel,
-     K1 and K2 launched on every rank (K3 where a rank keeps planes), with
+     K1, K2 and K8 launched on every rank (K3 where a rank keeps planes),
+     no plain elementwise version called on the card, with
      each rank's step time, peak memory, eval-key bytes and time in
      collectives; (c) one n = 32768 NTT across 8, 4 and 2 ranks equal to
      B1's; (d) NCCL at (1, device count) against the
@@ -111,28 +122,39 @@ POINTWISE_STEP_LAUNCHES = {"zp_mul": 5, "barrett_combine": 2,
                            "mod_switch": 1}
 
 
-def profile_step(run, step_ms: float, card: str, label: str) -> None:
-    """Device time of one run by kernel (torch.profiler), split into the
-    port's CUDA kernels and PyTorch's own kernels, and the idle share
-    against the run's CUDA-event time (`probes/step_time.py::split`, which
-    the A/B timings of the step use too)."""
+def profile_step(run, step_ms: float, card: str, label: str,
+                 reps: int = 1) -> None:
+    """Device time of `reps` runs by kernel (torch.profiler), split into
+    the port's CUDA kernels and PyTorch's own kernels, and the idle share
+    against the runs' CUDA-event time, `step_ms` each
+    (`probes/step_time.py::split`, which the A/B timings of the step use
+    too).  Busy times are per run; the kernel rows are the `reps` runs'
+    totals.  A profile with no device time is taken again, twice at
+    most: a profile of a one-launch gate has come back empty."""
     import torch
     from cuhe_tpu_torch.probes.step_time import split
     from torch.profiler import ProfilerActivity, profile
 
     run()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        run()
-        torch.cuda.synchronize()
-    sp = split(prof, step_ms)
-    busy, ours = sp["busy_ms"], sp["port_kernels_ms"]
+    for _ in range(3):  # a profile that recorded no device time is retried
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                run()
+            torch.cuda.synchronize()
+        sp = split(prof, step_ms * reps)
+        if sp["busy_ms"] > 0:
+            break
+    busy, ours = sp["busy_ms"] / reps, sp["port_kernels_ms"] / reps
     if busy <= 0:
-        log("[profile] the profiler recorded no device time: not measured")
+        log(f"[profile] {label}: the profiler recorded no device time: not "
+            "measured")
         return
-    log(f"[profile] {label}: device busy {busy:.3f} ms "
+    runs = f" (per run of {reps})" if reps > 1 else ""
+    log(f"[profile] {label}{runs}: device busy {busy:.3f} ms "
         f"(port kernels {ours:.3f} ms, PyTorch kernels "
-        f"{sp['pytorch_kernels_ms']:.3f} ms, share "
+        f"{sp['pytorch_kernels_ms'] / reps:.3f} ms, share "
         f"{sp['pytorch_share']:.3f}), {len(sp['rows'])} kernel names, idle "
         f"share {sp['idle_share']:.3f} of {step_ms:.3f} ms [{card}]")
     for k, ms, cnt in sp["port_rows"]:  # device time of each port kernel
@@ -625,6 +647,306 @@ def pointwise_shapes(dev, card, compare, rand_u32, rand_pair, rates) -> dict:
     return timings
 
 
+def crt_from_raw_model(rows: int, words: int, pnum: int,
+                       length: int) -> tuple:
+    """(bytes, multiplies) of K5 (`crt.crt_from_raw`): the RAW words in and
+    the residues out once, the primes once; at least one 32 x 32-bit
+    product for each reduction, a word into a residue."""
+    return ((rows * (words + pnum) * length + pnum) * 4,
+            {"mad32": rows * words * pnum * length})
+
+
+def zp_add_model(count: int, b_count: int) -> tuple:
+    """(bytes, multiplies) of K6 (`pointwise.ntt_add`): as K1's, with no
+    multiplies."""
+    return (count * 16 + b_count * 8, {})
+
+
+def crt_scalar_model(rows: int, pnum: int, length: int, mode: str) -> tuple:
+    """(bytes, multiplies) of K7: x in and the whole output once, the
+    primes once, and the plaintext polynomial ("poly", `crt_add_nx1`, a
+    reduction an output word), the values of the leading rows ("rows", one
+    per ciphertext) or none ("int"); the coefficient-0 modes reduce one
+    word a row."""
+    extra = {"poly": length, "rows": rows // pnum, "int": 0}[mode]
+    red = rows * length if mode == "poly" else rows
+    return ((2 * rows * length + pnum + extra) * 4, {"mad32": red})
+
+
+def icrt_halves_model(count: int, words: int = 0) -> tuple:
+    """(bytes, multiplies) of K8's split (`crt.icrt_split_halves`: `count`
+    words in, two int32 halves out) and combine (`icrt_combine_halves`:
+    two halves in, a word out, and M's `words`)."""
+    return (count * 12 + words * 4, {})
+
+
+def time_kernel(compare, rates, card, name, tag, kern, plain, model) -> dict:
+    """Hold a kernel against its plain version, time both (CUDA events,
+    one front-end call, medians) and the kernel against its bound (a time
+    under it fails the run); returns the kernels line's numbers."""
+    from cuhe_tpu_torch.probes.timing import bound, check_bound, cuda_ms
+
+    compare(name, tag, kern, plain)
+    ms, plain_ms = cuda_ms(kern, 20), cuda_ms(plain, 3)
+    b_ms, b_by = bound(*model, rates)
+    check_bound(f"{name} {tag}", ms, b_ms)
+    log(f"[time] {name} {tag}: kernel {ms:.4f} ms, plain {plain_ms:.4f} "
+        f"ms, bound {b_ms:.4f} ms ({b_by}), {model[0] / 1e6:.1f} MB "
+        f"[{card}]")
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+
+
+def crt_ops_shapes(dev, card, compare, rand_u32, rand_pair, rates) -> dict:
+    """Phase 2 for the elementwise kernels off the gate step (K5
+    `crt.crt_from_raw`, K6 `pointwise.ntt_add`, K7 `crt_add_nx1` /
+    `crt_add_int` / `crt_add_int_rows` / `crt_mul_int`, K8
+    `crt.icrt_split_halves` / `icrt_combine_halves`), each bit for bit
+    against its plain version
+      * at prince_l0's shapes, timed against the plain version and the byte
+        bound: the state's encryption (64 ciphertexts of 20 words to 25
+        planes), the XOR of two [32, 25, 32768] pairs, the round constants
+        of 64 ciphertexts and the S-box's NOT at level 1 (16 x 24 planes),
+        and a (2, 2) and a (1, 4) rank's ICRT split and combine (16 / 32
+        ciphertexts, 20 words, 2 / 4 shards);
+      * at simple_dhs's (one ciphertext of 5 words, 7 planes; keygen's
+        batch of 141 and its chunk of 64), the entry ring's, the light
+        PRINCE ring's, PRINCE levels 1, 23 and 24;
+      * at every word count 1..32 (25 primes), at 1, 7, 8, 9, 16, 17, 32,
+        33 and 40 primes (the kernel's prime blocks of 8, 16 and 32, and
+        two blocks), also with primes just below 2^32;
+      * at the extremes: RAW rows of 0, 1 and 2^32 - 1 words; pair words 0,
+        1, P - 2, P - 1, 2^32 - 1, 2^32, 2^63 in every pairing (against
+        Python ints too); residues p - 1 and 0 with a plaintext of 2^32 -
+        1; a = 0, 1, mod_msg - 1, p + 7 and 2^32 - 1; partials M - 1 on
+        2, 3, 4 and 64 shards, and on MAX_SHARDS shards against Python
+        ints.
+    Returns the timings by kernel name (the kernels line)."""
+    import torch
+    from cuhe_tpu_torch import entry as port_entry
+    from cuhe_tpu_torch import hostmath as hm
+    from cuhe_tpu_torch.ops import crt, modp
+    from cuhe_tpu_torch.ops import pointwise as pw
+    from cuhe_tpu_torch.params import make_params
+
+    def u32(vals):
+        return modp.to_u32(torch.tensor(vals, dtype=torch.int64, device=dev))
+
+    def residues(shape, primes):
+        return modp.to_u32(torch.remainder(
+            modp.to_i64(rand_u32(shape)), modp.to_i64(primes)[:, None]))
+
+    def timed(*args):
+        return time_kernel(compare, rates, card, *args)
+
+    def raw_check(tag, shape, ps):
+        raw, p = rand_u32(shape), u32(ps)
+        compare("crt_from_raw", f"{tag} {shape} -> {len(ps)} planes",
+                lambda: crt.crt_from_raw(raw, p),
+                lambda: crt.crt_from_raw_plain(raw, p))
+
+    def scalar_checks(tag, x, ps, mod_msg):
+        """K7's four front ends on residues x [.., pnum, L] mod ps."""
+        p = u32(ps)
+        s = rand_u32(x.shape[-1:])
+        s[:2] = u32([0xFFFFFFFF] * 2)
+        compare("crt_scalar", f"{tag} nx1 {tuple(x.shape)}",
+                lambda: pw.crt_add_nx1(x, s, p),
+                lambda: pw.crt_add_nx1_plain(x, s, p))
+        for a in (0, 1, mod_msg - 1, max(ps) + 7, 0xFFFFFFFF):
+            compare("crt_scalar", f"{tag} add_int {a} {tuple(x.shape)}",
+                    lambda: pw.crt_add_int(x, a, p),
+                    lambda: pw.crt_add_int_plain(x, a, p))
+            compare("crt_scalar", f"{tag} mul_int {a} {tuple(x.shape)}",
+                    lambda: pw.crt_mul_int(x, a, p),
+                    lambda: pw.crt_mul_int_plain(x, a, p))
+        if x.dim() > 2:
+            c = rand_u32(x.shape[:-2])
+            c.view(-1)[:1] = u32([0xFFFFFFFF])
+            compare("crt_scalar", f"{tag} add_int_rows {tuple(x.shape)}",
+                    lambda: pw.crt_add_int_rows(x, c, p),
+                    lambda: pw.crt_add_int_rows_plain(x, c, p))
+
+    timings = {}
+    # ---- K5 at prince_l0 (the state's encryption), timed ----
+    pr = make_params(*port_entry.PRINCE_PARAMS)
+    n, pn, words = pr.ntt_len, pr.num_crt_prime, pr.words_coeff(0)
+    half = n // 2
+    ps = [int(v) for v in pr.crt_primes]
+    p = u32(ps)
+    raw = rand_u32((64, words, half))
+    timings["crt_from_raw"] = timed(
+        "crt_from_raw", f"prince_l0 state x64, {words} words -> {pn} planes",
+        lambda: crt.crt_from_raw(raw, p),
+        lambda: crt.crt_from_raw_plain(raw, p),
+        crt_from_raw_model(64, words, pn, half))
+    del raw
+    # ---- K6: the XOR of two prince_l0 batches, timed ----
+    a, b = rand_pair((32, pn, n)), rand_pair((32, pn, n))
+    count = a[0].numel()
+    timings["zp_add"] = timed(
+        "zp_add", "prince_l0 XOR x32", lambda: pw.ntt_add(a, b),
+        lambda: pw.ntt_add_plain(a, b), zp_add_model(count, count))
+    pt = rand_pair((n,))
+    compare("zp_add", "prince_l0 x32 + plaintext [n]",
+            lambda: pw.ntt_add_nx1(a, pt), lambda: pw.ntt_add_plain(a, pt))
+    del a, b
+    # ---- K7: PRINCE's round constants at level 0 and the S-box's NOT at
+    # level 1, timed ----
+    x = residues((64, pn, half), p)
+    rc = u32([i % 2 for i in range(64)])
+    timings["crt_scalar"] = timed(
+        "crt_scalar", "prince round constants x64, 25 planes",
+        lambda: pw.crt_add_int_rows(x, rc, p),
+        lambda: pw.crt_add_int_rows_plain(x, rc, p),
+        crt_scalar_model(64 * pn, pn, half, "rows"))
+    p1 = u32(ps[:pn - 1])
+    x1 = residues((16, pn - 1, half), p1)
+    timed("crt_scalar", "prince S-box NOT x16, 24 planes",
+          lambda: pw.crt_add_int(x1, pr.mod_msg - 1, p1),
+          lambda: pw.crt_add_int_plain(x1, pr.mod_msg - 1, p1),
+          crt_scalar_model(16 * (pn - 1), pn - 1, half, "int"))
+    del x, x1
+    # ---- K8: a (2, 2) and a (1, 4) rank's ICRT split and combine, timed;
+    # partials below M (the top word below M's), one row of M - 1 ----
+    q, _, _ = pr.icrt_consts(0)
+    mw = [int(v) for v in hm.ints_to_words([q], words)[:, 0]]
+    m_words = u32(mw)
+    mm1 = u32([(q - 1) >> (32 * i) & 0xFFFFFFFF for i in range(words)])
+
+    def partials(count, shape):
+        out = []
+        for _ in range(count):
+            v = rand_u32(shape)
+            v[:, words - 1] = modp.to_u32(torch.remainder(
+                modp.to_i64(v[:, words - 1]), mw[words - 1]))
+            out.append(v)
+        out[0][0, :, :64] = mm1[:, None]
+        return out
+
+    for shards, batch, tag in ((2, 16, "(2, 2)"), (4, 32, "(1, 4)")):
+        parts = partials(shards, (batch, words, half))
+        mine = parts[0]
+        sp = timed("icrt_split16", f"{tag} rank x{batch}, {words} words",
+                   lambda: crt.icrt_split_halves(mine),
+                   lambda: crt.icrt_split_halves_plain(mine),
+                   icrt_halves_model(mine.numel()))
+        halves = sum(crt.icrt_split_halves(v) for v in parts)
+        cb = timed("icrt_combine16", f"{tag} rank x{batch}, {words} words, "
+                   f"{shards} shards", lambda: crt.icrt_combine_halves(
+                       halves[0], halves[1], m_words, shards),
+                   lambda: crt.icrt_combine_halves_plain(
+                       halves[0], halves[1], m_words, shards),
+                   icrt_halves_model(mine.numel(), words))
+        if shards == 2:
+            timings["icrt_split16"], timings["icrt_combine16"] = sp, cb
+        del parts, mine, halves
+    torch.cuda.empty_cache()
+
+    # ---- the other rings and levels ----
+    for name, params in (("simple_dhs", port_entry.SIMPLE_DHS_PARAMS),
+                         ("entry", port_entry.ENTRY_PARAMS),
+                         ("light prince", LIGHT_PRINCE)):
+        rpr = make_params(*params)
+        rn, rpn, rwords = rpr.ntt_len, rpr.num_crt_prime, rpr.words_coeff(0)
+        rps = [int(v) for v in rpr.crt_primes]
+        extra = ((141,), (64,)) if name == "simple_dhs" else ()
+        for lead in ((), (1,), (2,)) + extra:
+            raw_check(f"{name} lead {lead}", lead + (rwords, rn // 2), rps)
+        for lead in ((), (1,), (2,)):
+            xa, xb = rand_pair(lead + (rpn, rn)), rand_pair(lead + (rpn, rn))
+            ptx = rand_pair((rn,))
+            compare("zp_add", f"{name} {tuple(xa[0].shape)}",
+                    lambda: pw.ntt_add(xa, xb),
+                    lambda: pw.ntt_add_plain(xa, xb))
+            compare("zp_add", f"{name} {tuple(xa[0].shape)} + plaintext",
+                    lambda: pw.ntt_add_nx1(xa, ptx),
+                    lambda: pw.ntt_add_plain(xa, ptx))
+            scalar_checks(f"{name} lead {lead}",
+                          residues(lead + (rpn, rn // 2), u32(rps)), rps,
+                          rpr.mod_msg)
+    for lvl in (1, pr.depth - 2, pr.depth - 1):
+        lpn, lwords = pr.num_crt_prime_lvl(lvl), pr.words_coeff(lvl)
+        raw_check(f"prince lvl {lvl} x64", (64, lwords, half), ps[:lpn])
+        scalar_checks(f"prince lvl {lvl}",
+                      residues((64, lpn, half), u32(ps[:lpn])), ps[:lpn],
+                      pr.mod_msg)
+    torch.cuda.empty_cache()
+
+    # ---- K5 at every word count, at the prime blocks' edges, with primes
+    # just below 2^32, and on RAW rows of 0, 1 and 2^32 - 1 words ----
+    chain, v = [], 1 << 32
+    while len(chain) < 40:
+        v = hm.prev_prime(v - 1)
+        chain.append(v)
+    for w in range(1, crt.MAX_WORDS + 1):
+        raw_check(f"{w} words", (2, w, 256), ps)
+    for k in (1, 7, 8, 9, 16, 17, 32, 33, 40):
+        raw_check(f"{k} primes", (2, 20, 256), (ps * 2)[:k])
+        raw_check(f"{k} primes below 2^32", (2, 20, 256), chain[:k])
+    for eps in (ps, chain[:25]):
+        ep = u32(eps)
+        raw = rand_u32((4, 32, 256))
+        for r, val in enumerate((0, 1, 0xFFFFFFFF)):
+            raw[r] = u32([val])
+        raw[3, :, :8] = u32([0xFFFFFFFF])
+        compare("crt_from_raw", f"edge words, primes {eps[0]}..",
+                lambda: crt.crt_from_raw(raw, ep),
+                lambda: crt.crt_from_raw_plain(raw, ep))
+
+    # ---- K6 at the extremes, against Python ints too ----
+    P = modp.P
+    canon = (0, 1, 2, P - 2, P - 1, (1 << 32) - 1, 1 << 32, 1 << 63,
+             (1 << 63) + 1)
+    av = [x for x in canon for _ in canon]
+    bv = [y for _ in canon for y in canon]
+    av += [0] * (-len(av) % 4)
+    bv += [0] * (-len(bv) % 4)
+    ea = (u32([v & 0xFFFFFFFF for v in av]), u32([v >> 32 for v in av]))
+    eb = (u32([v & 0xFFFFFFFF for v in bv]), u32([v >> 32 for v in bv]))
+    got = pw.ntt_add(ea, eb)
+    compare("zp_add", f"extremes ({len(canon)} x {len(canon)} words)",
+            lambda: got, lambda: pw.ntt_add_plain(ea, eb))
+    if modp.u64_from_pair(*got).tolist() != [(x + y) % P
+                                             for x, y in zip(av, bv)]:
+        raise AssertionError("zp_add extremes != Python ints")
+
+    # ---- K7 at the extremes: x = p - 1 and 0, a plaintext of 2^32 - 1 ----
+    rpr = make_params(*port_entry.SIMPLE_DHS_PARAMS)
+    rps = [int(v) for v in rpr.crt_primes]
+    top = u32([[v - 1] * 256 for v in rps])
+    for name, xe in (("p - 1", top), ("0", torch.zeros_like(top))):
+        se = u32([0xFFFFFFFF] * 256)
+        compare("crt_scalar", f"extremes x = {name}, plaintext 2^32 - 1",
+                lambda: pw.crt_add_nx1(xe, se, u32(rps)),
+                lambda: pw.crt_add_nx1_plain(xe, se, u32(rps)))
+        scalar_checks(f"extremes x = {name}", xe[None], rps, rpr.mod_msg)
+
+    # ---- K8 at the extremes: partials M - 1 on every shard ----
+    part = partials(1, (3, words, 64))[0]
+    part[0] = mm1[:, None]
+    part[1] = 0
+    for shards in (2, 3, 4, 64):
+        h = crt.icrt_split_halves(part) * shards
+        compare("icrt_combine16", f"{shards} shards of partials M - 1, 0 "
+                "and random", lambda: crt.icrt_combine_halves(
+                    h[0], h[1], m_words, shards),
+                lambda: crt.icrt_combine_halves_plain(h[0], h[1], m_words,
+                                                      shards))
+    shards = crt.MAX_SHARDS
+    h = crt.icrt_split_halves(part[:1, :, :4].contiguous()) * shards
+    vals = modp.to_i64(crt.icrt_combine_halves(
+        h[0], h[1], m_words, shards)[0].cpu()).tolist()
+    want = (q - 1) * shards % q
+    if any(sum(vals[i][j] << (32 * i) for i in range(words)) != want
+           for j in range(4)):
+        raise AssertionError(f"icrt_combine16 on {shards} shards of M - 1 != "
+                             "Python ints")
+    log(f"[kernel] icrt_combine16 on {shards} shards of partials M - 1: "
+        "equal to Python ints")
+    log(f"[kernel] K5-K8: bit-exact at every shape and extreme [{card}]")
+    return timings
+
+
 def modp_wrap_extremes(dev) -> None:
     """The plain versions' int64 operations whose intermediates wrap modulo
     2^64 (ops/modp.py: a word product up to (2^32 - 1)^2, bit-pattern sums
@@ -682,8 +1004,9 @@ def shard_shapes(dev, card, compare, rand_u32, rand_pair) -> None:
     (parallel/mesh.py), at PRINCE level 0 (n = 32768, 25 primes, 40
     digits) on a rank's 16 ciphertexts: the ICRT (B3) of each rank's primes
     of `crt_split(25, 2)` and `crt_split(25, 4)` against the global M, whose
-    partials, summed mod M (`crt.icrt_combine_halves`, the all-reduce's
-    arithmetic), equal the ICRT of all 25; the multiply-accumulate (B4) on
+    partials, split into halves and summed mod M (`crt.icrt_split_halves`
+    and `icrt_combine_halves`, K8 around the all-reduce), equal the ICRT of
+    all 25; the multiply-accumulate (B4) on
     the contiguous eval-key slices of 13 and 12 planes, equal to the plain
     version's planes c0..c1-1 over the whole keys; and B1's two passes on
     each column block and row block of 2, 4 and 8 ranks (8: column blocks of
@@ -723,8 +1046,7 @@ def shard_shapes(dev, card, compare, rand_u32, rand_pair) -> None:
             compare("icrt", f"prince lvl 0 primes {c0}..{c1 - 1} of {pn}, "
                     f"global M, x{batch}", lambda: part,
                     lambda: crt.icrt_to_raw_plain(*args))
-            x = modp.to_i64(part)
-            halves = halves + torch.stack((x & 0xFFFF, x >> 16))
+            halves = halves + crt.icrt_split_halves(part)
         compare("icrt", f"prince lvl 0, partials of {shards} shards summed "
                 "mod M", lambda: crt.icrt_combine_halves(
                     halves[0], halves[1], m_words, shards), lambda: whole)
@@ -821,7 +1143,7 @@ def phase8_rank(world, seed: int) -> dict:
     torch.cuda.empty_cache()
     m = pmesh.make_mesh(2, 2, dev, ranks=range(4))
     if m is not None:
-        out["prince 2x2"] = run.run_step(m, "prince_l0", 32)
+        out["prince 2x2"] = run.run_step(m, "prince_l0", 32, profile=True)
     del m
     torch.cuda.empty_cache()
     n = 32768
@@ -853,7 +1175,7 @@ def phase8_rank(world, seed: int) -> dict:
 
 
 def parallel_phase(dev, card, rates, rand_u32, rand_pair, entry_out,
-                   prince_out) -> tuple[dict, dict]:
+                   prince_out) -> tuple[dict, dict, dict]:
     """Phase 8: the sharded step and NTT (parallel/mesh.py) on 8 ranks that
     share cuda:0 over Gloo (collectives carry CUDA tensors through the
     host: no time here is a claim about interconnects), the gathered
@@ -861,7 +1183,8 @@ def parallel_phase(dev, card, rates, rand_u32, rand_pair, entry_out,
     card, where there are two cards or more.  First, in this process alone
     on the card, the B kernels' times at a (2, 2) rank's shapes and the
     block passes' at (c)'s.  Returns (the block passes' timings, their
-    launches in (c), summed over the ranks)."""
+    launches in (c), summed over the ranks, and K8's launches in (b)'s
+    first step, summed over its ranks)."""
     import torch
     from cuhe_tpu_torch import entry as port_entry
     from cuhe_tpu_torch import hostmath as hm
@@ -958,8 +1281,12 @@ def parallel_phase(dev, card, rates, rand_u32, rand_pair, entry_out,
                       timeout=600)
     log(f"[parallel] 8 ranks over Gloo on cuda:0 in "
         f"{time.perf_counter() - t1:.1f} s")
+    # every rank of (a) and (b) has n_crt > 1: each runs K8 around the ICRT's
+    # all-reduce
     b_kernels = ("ntt_fwd", "ntt_inv_modcrt", "icrt", "ntt_fwd_digits",
-                 "relin_mulacc", "zp_mul", "barrett_combine")
+                 "relin_mulacc", "zp_mul", "barrett_combine", "icrt_split16",
+                 "icrt_combine16")
+    k8_launches = {}
     for name, want, n_ranks in (("entry 2x2", entry_out, 4),
                                 ("entry 1x3", entry_out, 3),
                                 ("prince 2x2", prince_out, 4)):
@@ -976,13 +1303,26 @@ def parallel_phase(dev, card, rates, rand_u32, rand_pair, entry_out,
             if missing:
                 raise AssertionError(f"{name} rank {r['rank']}: {missing} "
                                      "not launched")
+            if r["plain_calls"]:
+                raise AssertionError(f"{name} rank {r['rank']}: plain "
+                                     f"versions called on the card: "
+                                     f"{r['plain_calls']}")
             log(run.report(r, f"parallel {name} gloo, {card}"))
+            if name == "prince 2x2":
+                for k in ("icrt_split16", "icrt_combine16"):
+                    k8_launches[k] = (k8_launches.get(k, 0)
+                                      + r["launches"][k])
+                # K8's device time in the profiled step
+                for k, ms, cnt in r["profile"]["port_rows"]:
+                    if "icrt_split16" in k or "icrt_combine16" in k:
+                        log(f"[profile] rank {r['rank']} port {ms:9.3f} ms "
+                            f" x{cnt:<3d} {k[:60]}")
         # the last rank of (1, 3) keeps no plane of the switch
         if not any(r["launches"].get("mod_switch", 0) for r in res):
             raise AssertionError(f"{name}: mod_switch launched on no rank")
         log(f"[parallel] {name}: gathered {got.shape} == the unsharded card "
-            f"output bit for bit, every B kernel, zp_mul and barrett_combine "
-            f"launched on every rank")
+            f"output bit for bit, every B kernel, zp_mul, barrett_combine and "
+            f"K8 launched on every rank, no plain version")
     block_launches = {}
     for s in (8, 4, 2):
         for r in ranks[:s]:
@@ -1007,13 +1347,17 @@ def parallel_phase(dev, card, rates, rand_u32, rand_pair, entry_out,
         if not res[0]["equal"]:
             raise AssertionError("nccl: gathered output != the unsharded step")
         for r in res:
+            if r["plain_calls"]:
+                raise AssertionError(f"nccl rank {r['rank']}: plain versions "
+                                     f"called on the card: "
+                                     f"{r['plain_calls']}")
             log(run.report(r, f"parallel nccl 1x{count}, {card}"))
         log(f"nccl: 1x{count} bit-equal to the unsharded step in "
             f"{time.perf_counter() - t1:.1f} s [{card}]")
     else:
         log("nccl: skipped: one device")
     log(f"[parallel] phase 8 in {time.perf_counter() - t0:.1f} s")
-    return timings, block_launches
+    return timings, block_launches, k8_launches
 
 
 class CallTimer:
@@ -1052,16 +1396,20 @@ class CallTimer:
         return False
 
 
-def dhs_scheme(dev, card) -> None:
+def dhs_scheme(dev, card) -> dict:
     """Phase 6, the DHS scheme on the card.  (a) The light configuration
     CuDHS(3, 2, 16, 50, 25, 8191, seed=7) on the card and on the CPU: equal
     key strings, ciphertexts and gate outputs, decoding to the plaintext
     bits.  (b) The reference's shipped CuDHS(5, 2, 1, 61, 20, 8191) on the
     card: timed keygen, encrypt, XOR / NOT / AND -> relin -> modSwitch
     decrypting right, a second scheme from the private key string
-    decrypting the same ciphertext, the launch counts of one AND gate (each
-    B kernel must launch), each gate's time and the AND gate's device busy
-    and idle share."""
+    decrypting the same ciphertext, the launch counts of the encryption,
+    of the three gates together and of one XOR, NOT and AND gate each (the
+    encryption must launch K5, the XOR K6, the NOT K7, the AND each B
+    kernel and K1-K3; no plain elementwise version may run on the card in
+    any of them), each gate's time, device busy time, PyTorch-kernel share
+    and idle share.  Returns the launches of K5 in the encryption and of
+    K6 in one XOR (the kernels line)."""
     import numpy as np
     import torch
     from cuhe_tpu_torch import dhs as port_dhs
@@ -1147,10 +1495,18 @@ def dhs_scheme(dev, card) -> None:
     rng = np.random.default_rng(2026)
     msgs = [[int(b) for b in rng.integers(0, 2, dhs.num_slot)]
             for _ in range(2)]
+    torch.cuda.synchronize()
+    _cuda.reset_launches()
     t0 = time.perf_counter()
     cts = [dhs.encrypt(dhs.batcher.encode(m), 0) for m in msgs]
+    torch.cuda.synchronize()
     enc_s = (time.perf_counter() - t0) / len(cts)
+    torch.cuda.synchronize()
+    path = {"encrypt": (dict(_cuda.LAUNCHES), dict(_cuda.PLAIN_CALLS))}
+    _cuda.reset_launches()
     outs, lvl = gates(dhs, cts)
+    torch.cuda.synchronize()
+    path["gates"] = (dict(_cuda.LAUNCHES), dict(_cuda.PLAIN_CALLS))
     if lvl != 1:
         raise AssertionError(f"simple_dhs: AND gate ended at level {lvl}")
     check_decrypt(dhs, outs, msgs, "simple_dhs CuDHS(5,2,1,61,20,8191)")
@@ -1171,7 +1527,7 @@ def dhs_scheme(dev, card) -> None:
         f"AND gate alike [{card}]")
     del dhs2
 
-    # one AND -> relin -> modSwitch, its launches and its time
+    # one XOR, NOT and AND -> relin -> modSwitch: launches, time, profile
     ctx = dhs.ctx
     x, y = (poly.to_ntt(ctx, poly.ctxt_from_ints(c, 0)) for c in cts)
     xc = poly.to_crt(ctx, poly.ctxt_from_ints(cts[0], 0))
@@ -1180,16 +1536,30 @@ def dhs_scheme(dev, card) -> None:
         return poly.mod_switch(ctx, poly.relin(ctx, poly.c_and(ctx, x, y)))
 
     want = and_gate()
-    torch.cuda.synchronize()
-    _cuda.reset_launches()
-    got = and_gate()
-    torch.cuda.synchronize()
-    launches = dict(_cuda.LAUNCHES)
-    log(f"[dhs] launches in one AND -> relin -> modSwitch: {launches}")
-    for name in ("ntt_fwd", "ntt_inv_modcrt", "icrt", "ntt_fwd_digits",
-                 "relin_mulacc", *POINTWISE_STEP_LAUNCHES):
-        if launches.get(name, 0) < 1:
-            raise AssertionError(f"simple_dhs AND gate: {name} not launched")
+    for name, run in (("xor", lambda: poly.c_xor(ctx, x, y)),
+                      ("not", lambda: poly.c_not(ctx, xc)),
+                      ("and", and_gate)):
+        torch.cuda.synchronize()
+        _cuda.reset_launches()
+        got = run()
+        torch.cuda.synchronize()
+        path[name] = (dict(_cuda.LAUNCHES), dict(_cuda.PLAIN_CALLS))
+    # the kernels each path must launch: K5 in the encryption (RAW -> CRT),
+    # K6 in the NTT-domain XOR, K7 in the NOT, the B kernels and K1-K3 in
+    # the AND gate
+    needs = {"encrypt": ("crt_from_raw",), "gates": ("crt_from_raw",
+                                                     "zp_add", "crt_scalar"),
+             "xor": ("zp_add",), "not": ("crt_scalar",),
+             "and": ("ntt_fwd", "ntt_inv_modcrt", "icrt", "ntt_fwd_digits",
+                     "relin_mulacc", *POINTWISE_STEP_LAUNCHES)}
+    for name, (launches, plain) in path.items():
+        log(f"[dhs] launches in simple_dhs {name}: {launches}")
+        if plain:
+            raise AssertionError(f"simple_dhs {name}: plain versions called "
+                                 f"on the card: {plain}")
+        for k in needs[name]:
+            if launches.get(k, 0) < 1:
+                raise AssertionError(f"simple_dhs {name}: {k} not launched")
     if not torch.equal(got.data.view(torch.int32), want.data.view(torch.int32)):
         raise AssertionError("simple_dhs AND gate: two runs differ")
     gate_ms = {
@@ -1201,8 +1571,19 @@ def dhs_scheme(dev, card) -> None:
         "ciphertext): " + ", ".join(f"{k} {v:.4f} ms"
                                     for k, v in gate_ms.items())
         + f" [{card}]")
+    profile_step(lambda: poly.c_xor(ctx, x, y), gate_ms["xor (NTT)"], card,
+                 "simple_dhs XOR (NTT domain), batch 1", reps=20)
+    profile_step(lambda: poly.c_not(ctx, xc), gate_ms["not (CRT)"], card,
+                 "simple_dhs NOT (CRT domain), batch 1", reps=20)
     profile_step(and_gate, gate_ms["and -> relin -> modSwitch"], card,
                  "one simple_dhs AND -> relin -> modSwitch, batch 1")
+    # one encryption (host sampling and big-int packing included), for
+    # K5's device time in it
+    enc = dhs.batcher.encode(msgs[0])
+    profile_step(lambda: dhs.encrypt(enc, 0), enc_s * 1e3, card,
+                 "one simple_dhs encryption (host included)")
+    return {"crt_from_raw": path["encrypt"][0]["crt_from_raw"],
+            "zp_add": path["xor"][0]["zp_add"]}
 
 
 LIGHT_PRINCE = (5, 2, 16, 50, 25, 8191)  # tests/test_prince.py's light ring
@@ -1274,14 +1655,16 @@ def prince_light(dev, card) -> None:
         f"layer 2 is bit-equal [{card}]")
 
 
-def prince_full(dev, card) -> None:
+def prince_full(dev, card) -> dict:
     """Phase 7 (b), the PRINCE ring CuDHS(25, 2, 16, 25, 25, 21845) on the
     card: keygen timed by phase, with its peak memory; then the known-answer
     circuit, all 12 S-box layers, each decrypted and held against the
     published vector where there is one (rounds 0-3) and the final state
     against EXPECTED_FINAL.  One line per layer: its levels, time, each
-    kernel's launches (every B kernel must launch in every layer), peak
-    memory and decrypt time; then the circuit's totals."""
+    kernel's launches (every B kernel, K1-K4 and K7 must launch in every
+    layer, and no plain elementwise version may run on the card), peak
+    memory and decrypt time; then the circuit's totals.  Returns the
+    launches summed over the 12 layers."""
     import torch
     from cuhe_tpu_torch import dhs as port_dhs
     from cuhe_tpu_torch import hostlib, poly
@@ -1334,6 +1717,7 @@ def prince_full(dev, card) -> None:
         torch.cuda.synchronize()
         layer.update(ms=(time.perf_counter() - t) * 1e3, lvl=lvl,
                      inverse=inverse, launches=dict(_cuda.LAUNCHES),
+                     plain=dict(_cuda.PLAIN_CALLS),
                      peak=torch.cuda.max_memory_allocated())
         return out
 
@@ -1356,10 +1740,15 @@ def prince_full(dev, card) -> None:
         if want is not None and bits != want:
             raise AssertionError(f"PRINCE round {rd}: {bits} != {want}")
         for name in ("ntt_fwd", "ntt_inv_modcrt", "icrt", "ntt_fwd_digits",
-                     "relin_mulacc", *POINTWISE_STEP_LAUNCHES, "crt_add"):
+                     "relin_mulacc", *POINTWISE_STEP_LAUNCHES, "crt_add",
+                     "crt_scalar"):
             if launches.get(name, 0) < 1:
                 raise AssertionError(f"PRINCE layer {len(rows) + 1}: {name} "
                                      f"not launched")
+        if layer["plain"]:
+            raise AssertionError(f"PRINCE layer {len(rows) + 1}: plain "
+                                 f"versions called on the card: "
+                                 f"{layer['plain']}")
         rows.append((layer["ms"], dec_s, launches, layer["peak"]))
 
     t0 = time.perf_counter()
@@ -1733,6 +2122,8 @@ def main() -> int:
     shard_shapes(dev, card, compare, rand_u32, rand_pair)
     pw_timings = pointwise_shapes(dev, card, compare, rand_u32, rand_pair,
                                   rates)
+    pw_timings.update(crt_ops_shapes(dev, card, compare, rand_u32, rand_pair,
+                                     rates))
 
     # ---- 3. entry configuration: card == CPU ------------------------------
     step_cpu, args_cpu = port_entry.entry(device="cpu")
@@ -1778,6 +2169,9 @@ def main() -> int:
     torch.cuda.reset_peak_memory_stats()
     step_ms = cuda_ms(lambda: step(*args), 5)
     peak = torch.cuda.max_memory_allocated()
+    if _cuda.PLAIN_CALLS:
+        raise AssertionError(f"prince step: plain versions called on the "
+                             f"card: {dict(_cuda.PLAIN_CALLS)}")
     log(f"[prince] step {step_ms:.3f} ms per 32 ciphertexts, "
         f"{step_ms / 32:.4f} ms per ciphertext, peak memory {peak / 2**30:.2f} GiB "
         f"[{card}]")
@@ -1799,7 +2193,7 @@ def main() -> int:
 
     # ---- 6. the DHS scheme ------------------------------------------------
     t0 = time.perf_counter()
-    dhs_scheme(dev, card)
+    dhs_launches = dhs_scheme(dev, card)
     log(f"[dhs] phase 6 in {time.perf_counter() - t0:.1f} s")
 
     # ---- 7. homomorphic PRINCE ----------------------------------------------
@@ -1809,7 +2203,7 @@ def main() -> int:
     log(f"[prince] phase 7 in {time.perf_counter() - t0:.1f} s")
 
     # ---- 8. multi-device: the sharded step and NTT --------------------------
-    block_timings, block_launches = parallel_phase(
+    block_timings, block_launches, k8_launches = parallel_phase(
         dev, card, rates, rand_u32, rand_pair, entry_out, prince_out)
 
     sources = {"ntt_fwd": ("cuhe_tpu_torch/csrc/ntt.cu",
@@ -1832,18 +2226,29 @@ def main() -> int:
                         "max_abs_err": 0, "ms": r["ms"],
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"], "library_ms": None})
-    # the elementwise kernels: launches in phase 4's step (K1-K3) and in
-    # phase 7's 12 S-box layers (K4)
+    # the elementwise kernels: launches in phase 4's step (K1-K3), in
+    # phase 7's 12 S-box layers (K4, K7), in phase 6's encryption (K5) and
+    # XOR gate (K6), and on the (2, 2) ranks of phase 8 (b)'s step (K8)
     path_launches = {k: launches.get(k, 0) for k in POINTWISE_STEP_LAUNCHES}
-    path_launches["crt_add"] = prince_launches.get("crt_add", 0)
-    for name, rep in (("zp_mul", "cuhe_tpu/ops/modp.py:188"),
-                      ("barrett_combine", "cuhe_tpu/ops/barrett.py:29"),
-                      ("mod_switch", "cuhe_tpu/ops/pointwise.py:75"),
-                      ("crt_add", "cuhe_tpu/ops/pointwise.py:38")):
-        if path_launches[name] < 1:
+    for k in ("crt_add", "crt_scalar"):
+        path_launches[k] = prince_launches.get(k, 0)
+    path_launches.update(dhs_launches)
+    path_launches.update(k8_launches)
+    pw_src, crt_src = ("cuhe_tpu_torch/csrc/pointwise.cu",
+                       "cuhe_tpu_torch/csrc/crt_ops.cu")
+    for name, src, rep in (
+            ("zp_mul", pw_src, "cuhe_tpu/ops/modp.py:188"),
+            ("barrett_combine", pw_src, "cuhe_tpu/ops/barrett.py:29"),
+            ("mod_switch", pw_src, "cuhe_tpu/ops/pointwise.py:75"),
+            ("crt_add", pw_src, "cuhe_tpu/ops/pointwise.py:38"),
+            ("crt_from_raw", crt_src, "cuhe_tpu/ops/crt.py:26"),
+            ("zp_add", pw_src, "cuhe_tpu/ops/modp.py:152"),
+            ("crt_scalar", crt_src, "cuhe_tpu/ops/pointwise.py:45"),
+            ("icrt_split16", crt_src, "cuhe_tpu/ops/crt.py:165"),
+            ("icrt_combine16", crt_src, "cuhe_tpu/ops/crt.py:165")):
+        if path_launches.get(name, 0) < 1:
             raise AssertionError(f"{name} was not launched on its path")
-        kernels.append({"name": name, "route": "cuda",
-                        "source": "cuhe_tpu_torch/csrc/pointwise.cu",
+        kernels.append({"name": name, "route": "cuda", "source": src,
                         "replaces": rep, "launches": path_launches[name],
                         "max_abs_err": 0, **pw_timings[name],
                         "library_ms": None})

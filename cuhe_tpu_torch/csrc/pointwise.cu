@@ -1,10 +1,11 @@
-// The elementwise Z_P / CRT layer of the gate step: the Z_P pair product,
-// Barrett's combine, the modulus switch and the CRT add.
+// The elementwise Z_P / CRT layer of the gate step: the Z_P pair product
+// and sum, Barrett's combine, the modulus switch and the CRT add.
 //
 // Replaces work that has no Pallas kernel in the JAX package: XLA fuses it
 // inside the step's jit (cuhe_tpu/parallel/mesh.py:220-238) and the
 // per-level conversions' (cuhe_tpu/context.py:161-286) from
-//   cuhe_tpu/ops/modp.py::mul_modp          (:188)   -> zp_mul_kernel
+//   cuhe_tpu/ops/modp.py::mul_modp          (:188)   -> zp_binary_kernel
+//   cuhe_tpu/ops/modp.py::add_modp          (:152)   -> zp_binary_kernel
 //   cuhe_tpu/ops/barrett.py::barrett_reduce (:61-77) -> barrett_combine_kernel
 //   cuhe_tpu/ops/pointwise.py::mod_switch   (:75)    -> mod_switch_kernel
 //   cuhe_tpu/ops/pointwise.py::crt_add      (:38)    -> crt_add_kernel
@@ -52,14 +53,19 @@ __device__ __forceinline__ uint32_t crt_sub(uint32_t a, uint32_t b,
   return a < b ? a + p - b : a - b;
 }
 
-// ---- K1: out = a * b mod P on (lo, hi) word planes; b repeats every
-// b_quads quads (b broadcast over a's leading dimensions) ----
+// ---- K1 / K6: out = a * b (K1) or a + b (K6) mod P on (lo, hi) word
+// planes; b repeats every b_quads quads (b broadcast over a's leading
+// dimensions).  K6 takes canonical words (gl_add) ----
+enum class ZpOp { kMul, kAdd };
+
+template <ZpOp kOp>
 __global__ void __launch_bounds__(kThreads)
-zp_mul_kernel(const uint32_t* __restrict__ a_lo,
-              const uint32_t* __restrict__ a_hi,
-              const uint32_t* __restrict__ b_lo,
-              const uint32_t* __restrict__ b_hi, uint32_t* __restrict__ o_lo,
-              uint32_t* __restrict__ o_hi, uint32_t quads, uint32_t b_quads) {
+zp_binary_kernel(const uint32_t* __restrict__ a_lo,
+                 const uint32_t* __restrict__ a_hi,
+                 const uint32_t* __restrict__ b_lo,
+                 const uint32_t* __restrict__ b_hi,
+                 uint32_t* __restrict__ o_lo, uint32_t* __restrict__ o_hi,
+                 uint32_t quads, uint32_t b_quads) {
   const uint32_t q = blockIdx.x * kThreads + threadIdx.x;
   if (q >= quads) return;
   const uint32_t j = q < b_quads ? q : q % b_quads;
@@ -70,7 +76,7 @@ zp_mul_kernel(const uint32_t* __restrict__ a_lo,
   for (int e = 0; e < 4; ++e) {
     const uint64_t a = (uint64_t)(&al.x)[e] | ((uint64_t)(&ah.x)[e] << 32);
     const uint64_t b = (uint64_t)(&bl.x)[e] | ((uint64_t)(&bh.x)[e] << 32);
-    const uint64_t r = gl_mul(a, b);
+    const uint64_t r = kOp == ZpOp::kMul ? gl_mul(a, b) : gl_add(a, b);
     at(rl, e) = (uint32_t)r;
     at(rh, e) = (uint32_t)(r >> 32);
   }
@@ -220,6 +226,20 @@ dim3 row_grid(int len4, int rows) {
               rows < kMaxGridY ? rows : kMaxGridY);
 }
 
+template <ZpOp kOp>
+int zp_binary(const uint32_t* a_lo, const uint32_t* a_hi, const uint32_t* b_lo,
+              const uint32_t* b_hi, uint32_t* o_lo, uint32_t* o_hi, int count,
+              int b_count, cudaStream_t stream) {
+  if (count <= 0 || b_count <= 0 || count % 4 || b_count % 4 ||
+      count % b_count)
+    return (int)cudaErrorInvalidValue;
+  const uint32_t quads = count / 4;
+  zp_binary_kernel<kOp><<<(quads + kThreads - 1) / kThreads, kThreads, 0,
+                          stream>>>(a_lo, a_hi, b_lo, b_hi, o_lo, o_hi, quads,
+                                    b_count / 4);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -229,13 +249,16 @@ extern "C" {
 int cuhe_zp_mul(const uint32_t* a_lo, const uint32_t* a_hi,
                 const uint32_t* b_lo, const uint32_t* b_hi, uint32_t* o_lo,
                 uint32_t* o_hi, int count, int b_count, cudaStream_t stream) {
-  if (count <= 0 || b_count <= 0 || count % 4 || b_count % 4 ||
-      count % b_count)
-    return (int)cudaErrorInvalidValue;
-  const uint32_t quads = count / 4;
-  zp_mul_kernel<<<(quads + kThreads - 1) / kThreads, kThreads, 0, stream>>>(
-      a_lo, a_hi, b_lo, b_hi, o_lo, o_hi, quads, b_count / 4);
-  return (int)cudaGetLastError();
+  return zp_binary<ZpOp::kMul>(a_lo, a_hi, b_lo, b_hi, o_lo, o_hi, count,
+                               b_count, stream);
+}
+
+// As cuhe_zp_mul, the sum of canonical words.
+int cuhe_zp_add(const uint32_t* a_lo, const uint32_t* a_hi,
+                const uint32_t* b_lo, const uint32_t* b_hi, uint32_t* o_lo,
+                uint32_t* o_hi, int count, int b_count, cudaStream_t stream) {
+  return zp_binary<ZpOp::kAdd>(a_lo, a_hi, b_lo, b_hi, o_lo, o_hi, count,
+                               b_count, stream);
 }
 
 // f, c1, c2: u32 [rows, n]; m_crt: u32 [pnum, n/2]; primes: u32 [pnum];

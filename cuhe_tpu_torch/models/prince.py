@@ -3,10 +3,10 @@
 Counterpart of ``cuhe_tpu/models/prince.py`` (the reference's
 examples/Prince/Prince.{h,cu}).  The whole 64-ciphertext state is one
 batched CRT tensor ``[64, pnum, n/2]`` on the context's device; the linear
-layers are index gathers and CRT adds on that device; an S-box layer
-evaluates all 16 nibbles as one batch through the Context's per-level
-conversions, so on a card every NTT, ICRT and relinearization runs the
-port's CUDA kernels.
+layers are index gathers, CRT adds (K4) and round-constant adds (K7) on
+that device; an S-box layer evaluates all 16 nibbles as one batch through
+the Context's per-level conversions, so on a card every NTT, ICRT,
+relinearization and elementwise op runs the port's CUDA kernels.
 
 The gate schedule of the S-box layer (which products are relinearized,
 where the modulus switches happen) follows Prince.cu:204-322 and 339-460,
@@ -30,7 +30,6 @@ import torch
 from .. import hostmath as hm
 from ..context import Context
 from ..dhs import CuDHS
-from ..ops import modp
 from ..ops import pointwise as pw
 from ..utils.timer import timed
 
@@ -156,19 +155,20 @@ class Prince:
 
     def _add_coeff0(self, x, c, lvl):
         """A fresh state with (x[..., 0] + c) mod p_i in coefficient 0 of
-        every plane (int64 c, broadcast over x[..., 0]); int64 arithmetic,
-        as the CPU has no uint32 add."""
-        p = modp.to_i64(self.ctx.level(lvl).primes)
-        out = x.clone()
-        out[..., 0] = modp.to_u32((modp.to_i64(x[..., 0]) + c) % p)
-        return out
+        every plane: c an int, or uint32 of x's leading shape (one value a
+        ciphertext); K7 on the card (`pointwise.crt_add_int`,
+        `crt_add_int_rows`)."""
+        primes = self.ctx.level(lvl).primes
+        if isinstance(c, torch.Tensor):
+            return pw.crt_add_int_rows(x, c, primes)
+        return pw.crt_add_int(x, c, primes)
 
     def add_round_key(self, state, key_state, lvl):
         return self._crt_add(state, key_state, lvl)
 
     def add_rc(self, state, rnd, lvl):
-        rc = torch.tensor(rc_bits(rnd), dtype=torch.int64, device=state.device)
-        return self._add_coeff0(state, rc[:, None], lvl)
+        rc = torch.from_numpy(np.array(rc_bits(rnd), dtype=np.uint32))
+        return self._add_coeff0(state, rc.to(state.device), lvl)
 
     def m_p(self, state, lvl):
         g = [_take(state, self._mp_idx[:, k]) for k in range(3)]  # [64, pn, n]

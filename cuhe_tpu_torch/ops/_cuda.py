@@ -49,6 +49,12 @@ _SIGNATURES = {
     "cuhe_barrett_combine": "pppppp" + "iiii",
     "cuhe_mod_switch": "ppppp" + "iiiiii",
     "cuhe_crt_add": "pppp" + "iii",
+    "cuhe_zp_add": "pppppp" + "ii",
+    # the CRT-domain elementwise ops (csrc/crt_ops.cu)
+    "cuhe_crt_from_raw": "ppp" + "iiii",
+    "cuhe_crt_scalar": "ppppp" + "iiiii",
+    "cuhe_icrt_split16": "pp" + "i",
+    "cuhe_icrt_combine16": "pppp" + "iiii",
     "cuhe_calib": "p" + "iii",
     # the NTT passes one at a time (probes/ablate.py)
     "cuhe_ntt_cols_io": "pppp" + "iii",
@@ -74,10 +80,23 @@ _SIGNATURES = {
 # Launches per kernel wrapper: each wrapper adds one where it launches its
 # kernel, and nowhere else.
 LAUNCHES: collections.Counter = collections.Counter()
+# Calls of the elementwise kernels' plain versions (ops/pointwise.py,
+# ops/barrett.py, ops/crt.py) on CUDA tensors, by the kernel's launch
+# counter: a path that runs on the kernels makes none.
+PLAIN_CALLS: collections.Counter = collections.Counter()
 
 
 def reset_launches() -> None:
+    """Set the launch counts and the plain versions' call counts to 0."""
     LAUNCHES.clear()
+    PLAIN_CALLS.clear()
+
+
+def count_plain(counter: str, t: torch.Tensor) -> None:
+    """Count a plain version's call under its kernel's launch counter
+    where its operand `t` lies on a CUDA device."""
+    if t.device.type == "cuda":
+        PLAIN_CALLS[counter] += 1
 
 
 def _nvcc() -> str:

@@ -29,6 +29,7 @@ def barrett_combine_plain(f, c1, c2, m_crt, primes, *, mod_len: int,
     """Plain version of `barrett_combine`, in int64, following the JAX
     package's steps 2 and 4-6 (c1's low mod_len coefficients zeroed first,
     which no later step reads)."""
+    _cuda.count_plain("barrett_combine", f)
     half = n // 2
     pc = modp.to_i64(primes)[:, None]
     idx = torch.arange(n, device=f.device)

@@ -161,14 +161,21 @@ def _sync(dev: torch.device) -> None:
 
 
 def run_step(mesh, config: str = "entry", batch: int = 2,
-             reference: bool = False) -> dict:
+             reference: bool = False, *, profile: bool = False) -> dict:
     """One rank's run of the sharded step of `config` ("entry": batch 2;
     "prince_l0": `batch` ciphertexts): a first step whose kernel launches
     are counted, a timed one, and one whose collectives are timed.  Returns
     the rank's coordinates, planes, step seconds, peak device bytes,
-    eval-key bytes, seconds and calls in collectives, launches, and the gathered output's shape and sha256; rank
+    eval-key bytes, seconds and calls in collectives, the first step's
+    launches and calls of plain elementwise versions on the card
+    (`_cuda.PLAIN_CALLS`), and the gathered output's shape and sha256; rank
     0 of the mesh also returns the output (numpy) and, with `reference`,
-    whether it equals the unsharded step's on the same inputs."""
+    whether it equals the unsharded step's on the same inputs.  With
+    `profile` (a CUDA device; every rank of the mesh passes it), a fourth
+    step runs under torch.profiler: "profile" holds its device time split
+    into the port's kernels and PyTorch's (`probes/step_time.py::split`,
+    the collectives' copies among PyTorch's), and the idle share against
+    the timed step."""
     dev = mesh.device
     if config == "entry":
         step, args = entry.sharded_entry(mesh)
@@ -183,6 +190,7 @@ def run_step(mesh, config: str = "entry", batch: int = 2,
     step(*args)
     _sync(dev)
     launches = dict(_cuda.LAUNCHES)
+    plain_calls = dict(_cuda.PLAIN_CALLS)
     t0 = time.perf_counter()
     out = step(*args)
     _sync(dev)
@@ -194,6 +202,8 @@ def run_step(mesh, config: str = "entry", batch: int = 2,
     mesh.time_collectives(None)
     comm = dict(stats.seconds)
     calls = dict(stats.calls)
+    prof = (_profile(step, args, seconds * 1e3)
+            if profile and dev.type == "cuda" else None)
     full = gather_batch(out, mesh).cpu()
     res = {"rank": mesh.rank, "coords": (mesh.b, mesh.c),
            "planes": step.planes, "batch": int(args[0].shape[0]),
@@ -202,8 +212,11 @@ def run_step(mesh, config: str = "entry", batch: int = 2,
                           if dev.type == "cuda" else None),
            "ek_bytes": step.ek_lo.nbytes + step.ek_hi.nbytes,
            "comm_s": sum(comm.values()), "comm": comm, "calls": calls,
-           "launches": launches, "shape": tuple(full.shape),
+           "launches": launches, "plain_calls": plain_calls,
+           "shape": tuple(full.shape),
            "sha256": hashlib.sha256(full.numpy().tobytes()).hexdigest()}
+    if prof is not None:
+        res["profile"] = prof
     if mesh.rank == mesh.ranks[0]:
         res["output"] = full.numpy()
         if reference:
@@ -215,6 +228,27 @@ def run_step(mesh, config: str = "entry", batch: int = 2,
     return res
 
 
+def _profile(step, args, step_ms: float) -> dict:
+    """One step under torch.profiler, split by `step_time.split` (all the
+    port's rows, the ten longest of all); "collective_ms" is the part of
+    PyTorch's time
+    in the collectives' copies and records (Gloo moves CUDA tensors
+    through the host)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from ..probes.step_time import split
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step(*args)
+        torch.cuda.synchronize()
+    sp = split(prof, step_ms)
+    sp["collective_ms"] = sum(ms for k, ms, _ in sp["rows"] if k.startswith(
+        ("Memcpy", "Memset", "gloo:", "nccl")))
+    sp["rows"] = sp["rows"][:10]
+    return sp
+
+
 def report(res: dict, tag: str) -> str:
     peak = ("not measured" if res["peak_bytes"] is None
             else f"{res['peak_bytes'] / 2**30:.3f} GiB")
@@ -223,7 +257,20 @@ def report(res: dict, tag: str) -> str:
             f"step {res['step_s'] * 1e3:.3f} ms, peak {peak}, eval keys "
             f"{res['ek_bytes'] / 1e6:.1f} MB, collectives "
             f"{res['comm_s'] * 1e3:.3f} ms {res['calls']}, launches "
-            f"{res['launches']}")
+            f"{res['launches']}" + _profile_line(res.get("profile")))
+
+
+def _profile_line(sp) -> str:
+    if sp is None:
+        return ""
+    if sp["busy_ms"] <= 0:
+        return "; profile: no device time recorded"
+    return (f"; profiled step: device busy {sp['busy_ms']:.3f} ms (port "
+            f"kernels {sp['port_kernels_ms']:.3f}, PyTorch "
+            f"{sp['pytorch_kernels_ms']:.3f}, share "
+            f"{sp['pytorch_share']:.3f}, of which the collectives' copies and "
+            f"records {sp['collective_ms']:.3f}), idle share "
+            f"{sp['idle_share']:.3f} of the timed step")
 
 
 def main(argv=None) -> int:

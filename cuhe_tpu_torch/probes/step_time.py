@@ -28,11 +28,14 @@ import subprocess
 import sys
 from pathlib import Path
 
-# the port's kernels by a part of their device names
+# the port's kernels by a part of their device names (K1's and K6's body
+# is zp_binary_kernel; trees before it named K1's zp_mul_kernel)
 PORT_KERNEL_NAMES = ("fwd_cols", "ntt_rows", "inv_cols", "icrt_kernel",
-                     "relin_mulacc_kernel", "zp_mul_kernel",
-                     "barrett_combine_kernel", "mod_switch_kernel",
-                     "crt_add_kernel")
+                     "relin_mulacc_kernel", "zp_binary_kernel",
+                     "zp_mul_kernel", "barrett_combine_kernel",
+                     "mod_switch_kernel", "crt_add_kernel",
+                     "crt_from_raw_kernel", "crt_scalar_kernel",
+                     "icrt_split16_kernel", "icrt_combine16_kernel")
 BATCH = 32  # ciphertexts in the timed step
 REPS = 20  # timed steps
 

@@ -7,7 +7,8 @@ apart, over an uneven split of the planes) against the JAX `mod_switch`, K4
 `pointwise.crt_add` against the JAX `crt_add`.  Inputs come from numpy
 seeds and the extremes (pair words P - 1, P, 2^64 - 1; residues p - 1 and
 0; dirty residues about (p_t - 1) / 2 with mod_msg 2, 3 and 16).  Also: a
-meta-device tensor and a wrong dtype raise, `GateStep(plain=True)` reaches
+meta-device tensor and a wrong dtype raise at every front end of K1-K8
+(K5-K8 against JAX: test_torch_crt_kernels.py), `GateStep(plain=True)` reaches
 no kernel front end, and chip_smoke.py's byte bounds equal a hand count at
 PRINCE level 0.  The card's side is chip_smoke.py phase 2 (kernel ==
 plain)."""
@@ -30,6 +31,7 @@ from cuhe_tpu.ops import pointwise as jpw
 from cuhe_tpu.params import make_params as jmake_params
 from cuhe_tpu_torch import entry
 from cuhe_tpu_torch.ops import barrett, modp
+from cuhe_tpu_torch.ops import crt as crt_ops
 from cuhe_tpu_torch.ops import ntt_kernels as nk
 from cuhe_tpu_torch.ops import pointwise as pw
 from cuhe_tpu_torch.parallel.mesh import crt_split
@@ -314,7 +316,10 @@ def test_crt_add_matches_jax(jctx, lead):
 
 # ---- the front ends' checks and dispatch ----
 
-def _front_end_calls(x_pair, crt, primes, invp, mod_len, n):
+def _front_end_calls(x_pair, crt, primes, invp, mod_len, n, halves):
+    """Each front end with `crt` (or x_pair's first word) as the operand of
+    the tested dtype; icrt_combine16's is M's words, since its halves are
+    int32 (`halves`, on the tested device)."""
     return {
         "ntt_mul": lambda: pw.ntt_mul(x_pair, x_pair),
         "barrett_combine": lambda: barrett.barrett_combine(
@@ -322,11 +327,24 @@ def _front_end_calls(x_pair, crt, primes, invp, mod_len, n):
             n=n),
         "mod_switch": lambda: pw.mod_switch(crt, primes, invp, 2),
         "crt_add": lambda: pw.crt_add(crt, crt, primes),
+        "ntt_add": lambda: pw.ntt_add(x_pair, x_pair),
+        "crt_from_raw": lambda: crt_ops.crt_from_raw(crt, primes),
+        "crt_add_nx1": lambda: pw.crt_add_nx1(crt, crt[0, 0], primes),
+        "crt_add_int": lambda: pw.crt_add_int(crt, 1, primes),
+        "crt_add_int_rows": lambda: pw.crt_add_int_rows(crt, crt[:, 0, 0],
+                                                        primes),
+        "crt_mul_int": lambda: pw.crt_mul_int(crt, 3, primes),
+        "icrt_split16": lambda: crt_ops.icrt_split_halves(crt),
+        "icrt_combine16": lambda: crt_ops.icrt_combine_halves(
+            halves, halves, crt[0, :, 0], 2),
     }
 
 
 @pytest.mark.parametrize("name", ["ntt_mul", "barrett_combine", "mod_switch",
-                                  "crt_add"])
+                                  "crt_add", "ntt_add", "crt_from_raw",
+                                  "crt_add_nx1", "crt_add_int",
+                                  "crt_add_int_rows", "crt_mul_int",
+                                  "icrt_split16", "icrt_combine16"])
 def test_front_ends_reject_meta_and_wrong_dtype(name):
     """A meta-device tensor raises (no plain version, no kernel), and so
     does a float32 or an int32 operand on the CPU (the plain versions take
@@ -342,8 +360,10 @@ def test_front_ends_reject_meta_and_wrong_dtype(name):
         pair = (torch.zeros((2, pn, n), dtype=dtype, device=device),
                 u32((2, pn, n), device))
         crt = torch.zeros((2, pn, n // 2), dtype=dtype, device=device)
+        halves = torch.zeros((2, pn, n // 2), dtype=torch.int32,
+                             device=device)
         calls = _front_end_calls(pair, crt, u32((pn,), device),
-                                 u32((pn - 1,), device), n // 4, n)
+                                 u32((pn - 1,), device), n // 4, n, halves)
         with pytest.raises(err):
             calls[name]()
 
