@@ -7,7 +7,9 @@ circuit and multi-device step on one NVIDIA H100.
 Phases (any failure ends the run with a non-zero exit and no result line):
   1. build the CUDA kernels of cuhe_tpu_torch/csrc with nvcc (sm_90a), read
      the SASS instructions per product of the multiply-accumulate's digit
-     loop and per prime of the ICRT's loop, and the wgmma and TMA load
+     loop, per prime of the ICRT's loop and per (word, prime) of K5's prime
+     loop, K5's and K8's combine's registers, spills and resident blocks
+     per SM (`probes/crt_ops_time.py`), and the wgmma and TMA load
      instructions in the loops of P1's dot kernels (none fails the run),
      and measure the card's integer multiply rates (csrc/calib.cu), which
      the operation side of each kernel's bound uses, and the SM clock under
@@ -680,6 +682,34 @@ def icrt_halves_model(count: int, words: int = 0) -> tuple:
     return (count * 12 + words * 4, {})
 
 
+def combine_ref(lo: list, hi: list, m: int, n_shards: int) -> list:
+    """`crt.icrt_combine_halves_plain`'s result in Python ints, for int32
+    halves lo, hi (nested lists [rows, words, L]) of any value and M = m:
+    with s the rippled words and top the signed carry out of the last, its
+    max(1, n_shards - 1) conditional subtracts of M (each where top > 0 or
+    s >= M) leave s - k M mod 2^(32 words), k = min(floor(T / M), rounds),
+    T = top 2^(32 words) + s where top > 0, else s (a subtract with top <= 0
+    leaves top alone).  tests/test_torch_crt_kernels.py holds this against
+    the plain version."""
+    rounds, out = max(1, n_shards - 1), []
+    for lr, hr in zip(lo, hi):
+        words, length = len(lr), len(lr[0])
+        rows = [[0] * length for _ in range(words)]
+        for j in range(length):
+            s = carry = 0
+            for w in range(words):
+                t = lr[w][j] + hr[w][j] * 65536 + carry
+                s |= (t & 0xFFFFFFFF) << (32 * w)
+                carry = t >> 32
+            total = (carry << (32 * words)) + s if carry > 0 else s
+            k = min(total // m, rounds) if m else 0
+            v = (s - k * m) % (1 << (32 * words))
+            for w in range(words):
+                rows[w][j] = (v >> (32 * w)) & 0xFFFFFFFF
+        out.append(rows)
+    return out
+
+
 def time_kernel(compare, rates, card, name, tag, kern, plain, model) -> dict:
     """Hold a kernel against its plain version, time both (CUDA events,
     one front-end call, medians) and the kernel against its bound (a time
@@ -712,14 +742,21 @@ def crt_ops_shapes(dev, card, compare, rand_u32, rand_pair, rates) -> dict:
         batch of 141 and its chunk of 64), the entry ring's, the light
         PRINCE ring's, PRINCE levels 1, 23 and 24;
       * at every word count 1..32 (25 primes), at 1, 7, 8, 9, 16, 17, 32,
-        33 and 40 primes (the kernel's prime blocks of 8, 16 and 32, and
-        two blocks), also with primes just below 2^32;
+        33, 40, 103, 128, 129 and 130 primes (K5 builds the constants of
+        up to 128 primes a block), also with primes just below 2^32, and
+        with the small primes 2, 3, 251, 65521, 65537 alone and mixed with
+        primes just below 2^32 in one call, at 1, 2, 17, 20, 27, 28 and 32
+        words (K5's chunk widths 32, 30, 27 and 26 bits);
       * at the extremes: RAW rows of 0, 1 and 2^32 - 1 words; pair words 0,
         1, P - 2, P - 1, 2^32 - 1, 2^32, 2^63 in every pairing (against
         Python ints too); residues p - 1 and 0 with a plaintext of 2^32 -
         1; a = 0, 1, mod_msg - 1, p + 7 and 2^32 - 1; partials M - 1 on
-        2, 3, 4 and 64 shards, and on MAX_SHARDS shards against Python
-        ints.
+        1, 2, 3, 4, 5, 8 and 64 shards, and on MAX_SHARDS shards against
+        Python ints; int32 halves of any value (a negative top word among
+        them) against M, 1, 2^32 - 5, 0 and 2^640 - 1 on 1, 2, 5, 8 and 64
+        shards, and on MAX_SHARDS against Python ints (`combine_ref`).
+    K5's and K8's combine's device time per launch at prince_l0's shapes
+    comes from torch.profiler over 12 launches after 3 warm-up calls.
     Returns the timings by kernel name (the kernels line)."""
     import torch
     from cuhe_tpu_torch import entry as port_entry
@@ -727,6 +764,7 @@ def crt_ops_shapes(dev, card, compare, rand_u32, rand_pair, rates) -> dict:
     from cuhe_tpu_torch.ops import crt, modp
     from cuhe_tpu_torch.ops import pointwise as pw
     from cuhe_tpu_torch.params import make_params
+    from cuhe_tpu_torch.probes import crt_ops_time
 
     def u32(vals):
         return modp.to_u32(torch.tensor(vals, dtype=torch.int64, device=dev))
@@ -779,6 +817,13 @@ def crt_ops_shapes(dev, card, compare, rand_u32, rand_pair, rates) -> dict:
         lambda: crt.crt_from_raw(raw, p),
         lambda: crt.crt_from_raw_plain(raw, p),
         crt_from_raw_model(64, words, pn, half))
+    k5_dev = crt_ops_time.device_ms(lambda: crt.crt_from_raw(raw, p),
+                                    "crt_from_raw_kernel")
+    log(f"[profile] crt_from_raw prince_l0 state x64: device "
+        f"{k5_dev[0]} ms per launch over {k5_dev[1]} profiled launches "
+        f"(after {crt_ops_time.WARM} outside the profile) [{card}]")
+    if not k5_dev[1]:
+        raise AssertionError("crt_from_raw: the profiler recorded no launch")
     del raw
     # ---- K6: the XOR of two prince_l0 batches, timed ----
     a, b = rand_pair((32, pn, n)), rand_pair((32, pn, n))
@@ -837,6 +882,15 @@ def crt_ops_shapes(dev, card, compare, rand_u32, rand_pair, rates) -> dict:
                    lambda: crt.icrt_combine_halves_plain(
                        halves[0], halves[1], m_words, shards),
                    icrt_halves_model(mine.numel(), words))
+        cb_dev = crt_ops_time.device_ms(
+            lambda: crt.icrt_combine_halves(halves[0], halves[1], m_words,
+                                            shards), "icrt_combine16_kernel")
+        log(f"[profile] icrt_combine16 {tag} rank x{batch}, {shards} "
+            f"shards: device {cb_dev[0]} ms per launch over {cb_dev[1]} "
+            f"profiled launches [{card}]")
+        if not cb_dev[1]:
+            raise AssertionError("icrt_combine16: the profiler recorded no "
+                                 "launch")
         if shards == 2:
             timings["icrt_split16"], timings["icrt_combine16"] = sp, cb
         del parts, mine, halves
@@ -880,10 +934,17 @@ def crt_ops_shapes(dev, card, compare, rand_u32, rand_pair, rates) -> dict:
         chain.append(v)
     for w in range(1, crt.MAX_WORDS + 1):
         raw_check(f"{w} words", (2, w, 256), ps)
-    for k in (1, 7, 8, 9, 16, 17, 32, 33, 40):
-        raw_check(f"{k} primes", (2, 20, 256), (ps * 2)[:k])
-        raw_check(f"{k} primes below 2^32", (2, 20, 256), chain[:k])
-    for eps in (ps, chain[:25]):
+    for k in (1, 7, 8, 9, 16, 17, 32, 33, 40, 103, 128, 129, 130):
+        raw_check(f"{k} primes", (2, 20, 256), (ps * 6)[:k])
+        raw_check(f"{k} primes below 2^32", (2, 20, 256), (chain * 4)[:k])
+    # small primes (a normalising shift of up to 30 bits), and small primes
+    # mixed with primes just below 2^32 in one call
+    small = [2, 3, 251, 65521, 65537]
+    mixed = [v for pair in zip(small, chain) for v in pair]
+    for w in (1, 2, 17, 20, 27, 28, 32):
+        raw_check(f"{w} words, small primes", (2, w, 256), small)
+        raw_check(f"{w} words, small and large primes", (2, w, 256), mixed)
+    for eps in (ps, chain[:25], small, mixed):
         ep = u32(eps)
         raw = rand_u32((4, 32, 256))
         for r, val in enumerate((0, 1, 0xFFFFFFFF)):
@@ -925,7 +986,7 @@ def crt_ops_shapes(dev, card, compare, rand_u32, rand_pair, rates) -> dict:
     part = partials(1, (3, words, 64))[0]
     part[0] = mm1[:, None]
     part[1] = 0
-    for shards in (2, 3, 4, 64):
+    for shards in (1, 2, 3, 4, 5, 8, 64):
         h = crt.icrt_split_halves(part) * shards
         compare("icrt_combine16", f"{shards} shards of partials M - 1, 0 "
                 "and random", lambda: crt.icrt_combine_halves(
@@ -943,6 +1004,31 @@ def crt_ops_shapes(dev, card, compare, rand_u32, rand_pair, rates) -> dict:
                              "Python ints")
     log(f"[kernel] icrt_combine16 on {shards} shards of partials M - 1: "
         "equal to Python ints")
+    # int32 halves no all-reduce gives (negative, any size; a negative top),
+    # against M, M = 1, M of one word under 20 words, M = 0 and 2^640 - 1
+    lo = rand_u32((2, words, 256)).view(torch.int32)
+    hi = rand_u32((2, words, 256)).view(torch.int32)
+    lo[1] = lo[1].remainder(1 << 18) - 3
+    hi[1] = hi[1].remainder(1 << 18) - 3
+    hi[1, :, :4] = (1 << 31) - 1
+    for mname, mv in (("M", q), ("1", 1), ("2^32 - 5", (1 << 32) - 5),
+                      ("0", 0), ("2^640 - 1", (1 << (32 * words)) - 1)):
+        mx = u32([(mv >> (32 * i)) & 0xFFFFFFFF for i in range(words)])
+        for shards in (1, 2, 5, 8, 64):
+            compare("icrt_combine16", f"int32 halves of any value, M = "
+                    f"{mname}, {shards} shards",
+                    lambda: crt.icrt_combine_halves(lo, hi, mx, shards),
+                    lambda: crt.icrt_combine_halves_plain(lo, hi, mx, shards))
+        got = crt.icrt_combine_halves(lo, hi, mx, crt.MAX_SHARDS)
+        want = combine_ref(lo.cpu().tolist(), hi.cpu().tolist(), mv,
+                           crt.MAX_SHARDS)
+        if modp.to_i64(got).cpu().tolist() != want:
+            raise AssertionError(f"icrt_combine16 on int32 halves, M = "
+                                 f"{mname}, {crt.MAX_SHARDS} shards != "
+                                 "Python ints")
+    log(f"[kernel] icrt_combine16 on int32 halves of any value: equal to the "
+        f"plain version at 1..64 shards and to Python ints at "
+        f"{crt.MAX_SHARDS}")
     log(f"[kernel] K5-K8: bit-exact at every shape and extreme [{card}]")
     return timings
 
@@ -1797,6 +1883,7 @@ def main() -> int:
     from cuhe_tpu_torch.params import make_params
     from cuhe_tpu_torch.probes import ablate
     from cuhe_tpu_torch.probes import calib as probe_calib
+    from cuhe_tpu_torch.probes import crt_ops_time
     from cuhe_tpu_torch.probes import suite as probe_suite
     from cuhe_tpu_torch.probes.timing import (bound, check_bound, cuda_ms,
                                               gpu_line)
@@ -1822,6 +1909,21 @@ def main() -> int:
     loop = probe_calib.sass_loop(sass, "icrt_kernelILi20E", "IMAD.WIDE")
     log(f"[sass] icrt (20 words) prime loop: {sum(loop.values())} "
         f"instructions per prime; {dict(loop.most_common(8))}")
+    # K5 and K8's combine at PRINCE level 0's 20 words: registers, stack
+    # and local bytes (spills) per thread, resident blocks per SM, and K5's
+    # instructions per (word, prime) of its prime loop
+    words0 = make_params(*port_entry.PRINCE_PARAMS).words_coeff(0)
+    for name, ev in crt_ops_time.evidence(so, sass, words0).items():
+        loop = ev.get("sass_loop")
+        log(f"[sass] {name} ({ev['function']}): {ev['reg']} registers, "
+            f"stack {ev['stack']} B, local {ev['local']} B, shared "
+            f"{ev['shared']} B; {ev['blocks_per_sm']} resident blocks of 256 "
+            f"threads per SM (compute capability 9.0's rules)"
+            + (f"; prime loop {loop['instructions']} instructions for "
+               f"{loop['word_prime_pairs']} (word, prime) pairs, "
+               f"{loop['per_word_prime']:.2f} per pair, "
+               f"{loop['wide_multiplies']} wide multiplies; "
+               f"{loop['opcodes']}" if loop else ""))
     # P1's dot kernels: wgmma (HGMMA / IGMMA) in the consumers' loop and TMA
     # loads (UTMALDG) in the producer's; raises if either is missing
     log(f"[sass] P1 dot kernels' loops: {probe_calib.dot_sass_counts(sass)}")

@@ -13,10 +13,19 @@
 //     the S-box's cnot (:260)                         -> crt_scalar_kernel
 //   cuhe_tpu/ops/crt.py::icrt_psum_combine     (:165) -> icrt_split16_kernel
 //                                                      icrt_combine16_kernel
-// Residues mod p < 2^32 are reduced by Barrett with mu = floor((2^64 - 1) /
-// p) (goldilocks.cuh mod_p32, exact for any 64-bit value), each mu computed
-// once per block with one division.  The front ends (ops/crt.py,
-// ops/pointwise.py) check shapes, dtypes, contiguity and alignment.
+// K7's residues mod p < 2^32 are reduced by Barrett with mu = floor((2^64
+// - 1) / p) (goldilocks.cuh mod_p32, exact for any 64-bit value), each mu
+// computed once per block with one division.  K5 reduces a dot product of
+// the coefficient's bit chunks with per-prime constants by one 2/1 division
+// (`div_2by1`); K8's combine replaces its conditional subtracts of M with
+// one quotient estimate.  K5 and K8's combine are instantiated at every
+// word count 1..32, so a coefficient's words live in registers.  The front
+// ends (ops/crt.py, ops/pointwise.py) check shapes, dtypes, contiguity and
+// alignment.
+//
+// What bounds them on an H100: K5, the multiply-adds (N per coefficient
+// and prime against the bound's one per word, N / W = 1.2 at 20 words);
+// K7, K8 the bytes, each word read and written once.
 
 #include <cuda_runtime.h>
 
@@ -45,48 +54,177 @@ __device__ __forceinline__ uint32_t& at(uint4& v, int e) {
 int grid_y(int rows) { return rows < kMaxGridY ? rows : kMaxGridY; }
 
 // ---- K5: RAW [rows, words, len] -> CRT [rows, pnum, len] ----
-// Horner from the top word, r = (r 2^32 + w) mod p (cuhe_tpu/ops/
-// crt.py:38-46).  A thread owns one coefficient of one row and the
-// residues of a block of up to PB primes (blockIdx.z) in registers: it
-// reads each of its words once and reduces it into every residue, so the
-// primes' reductions are independent work between two loads.  The primes
-// and their mu are read from shared memory as broadcasts.
-template <int PB>
-__global__ void __launch_bounds__(kThreads)
+// A coefficient of W words is cut into N chunks of B bits, chunk k its bits
+// [kB, kB + B), the widest B with N 2^B <= 2^32 (B = 27 and N = 24 at W =
+// 20).  Its residue mod p is then a dot product with per-prime constants,
+//   x = sum_k chunk_k 2^(kB) == sum_k chunk_k c_k  (mod p),
+//   c_k = (2^(kB) mod p) 2^s,  d = p 2^s with 2^31 <= d < 2^32,
+// accumulated in 64 bits: each term is below 2^B d, so the sum S is below
+// N 2^B d <= 2^32 d < 2^64, a product of two u32 plus a u64 is one
+// IMAD.WIDE.U32, and nothing is reduced until the end.  S = (x mod p) 2^s
+// (mod d) and S < 2^32 d, so one 2/1 division by the normalized d
+// (`div_2by1`: one wide multiply by its reciprocal, one narrow multiply,
+// two compares) and a shift give x mod p exactly, for any 2 <= p < 2^32.
+// Per (coefficient, prime): N wide multiply-adds against the W of the bound
+// (one 32 x 32-bit product per word), where Horner from the top word took
+// W 64-bit Barrett reductions, each a 64 x 64-bit high product.
+//
+// A thread owns two coefficients of one row (one past 24 words): it loads
+// their W words once (coalesced across the warp), cuts them into N chunks
+// in registers (W is a template parameter, so every shift is a constant),
+// then loops over the primes, reads each prime's constants from shared
+// memory as warp-wide broadcasts, once for both coefficients, and writes
+// each residue once, coalesced.  A block builds the
+// constants of its primes (up to kPrimeBlock, blockIdx.z; PRINCE's 25 are
+// one block) in a prologue, one thread per prime, by N - 1 steps of
+// c_(k+1) = div_2by1(c_k 2^B): no host table and no second launch.
+constexpr int kPrimeBlock = 128;
+
+__host__ __device__ constexpr int raw_chunks(int w, int b) {
+  return (32 * w + b - 1) / b;
+}
+
+__host__ __device__ constexpr int raw_chunk_bits(int w) {
+  int b = 32;
+  while ((long long)raw_chunks(w, b) << b > (1ll << 32)) --b;
+  return b;
+}
+
+// u32 per prime in shared memory: the N constants, padded to a multiple of
+// 4, then d, v, s and a zero (16-byte aligned, read as uint4).
+__host__ __device__ constexpr int raw_table_stride(int w) {
+  return ((raw_chunks(w, raw_chunk_bits(w)) + 3) & ~3) + 4;
+}
+
+// u = q d + r for a normalized d (2^31 <= d < 2^32) and u < 2^32 d, with
+// v = floor((2^64 - 1) / d) - 2^32: Moller and Granlund's 2/1 division
+// ("Improved division by invariant integers", 2011, Algorithm 4).  v u1 + u
+// does not overflow 64 bits.  Returns r; q where asked.
+__device__ __forceinline__ uint32_t div_2by1(uint64_t u, uint32_t d,
+                                             uint32_t v,
+                                             uint32_t* q = nullptr) {
+  const uint32_t u0 = (uint32_t)u;
+  const uint64_t e = (uint64_t)v * (uint32_t)(u >> 32) + u;
+  uint32_t q1 = (uint32_t)(e >> 32) + 1;
+  uint32_t r = u0 - q1 * d;
+  if (r > (uint32_t)e) {
+    --q1;
+    r += d;
+  }
+  if (r >= d) {
+    ++q1;
+    r -= d;
+  }
+  if (q) *q = q1;
+  return r;
+}
+
+// acc + a b in one IMAD.WIDE.U32: ptxas turns the same sum written in C++
+// into the wide multiply plus an add of a zero high word per term.
+__device__ __forceinline__ uint64_t mad_wide(uint32_t a, uint32_t b,
+                                             uint64_t acc) {
+#ifdef __CUDA_ARCH__
+  uint64_t r;
+  asm("mad.wide.u32 %0, %1, %2, %3;" : "=l"(r) : "r"(a), "r"(b), "l"(acc));
+  return r;
+#else
+  return acc + (uint64_t)a * b;
+#endif
+}
+
+// Prime p's constants at t (raw_table_stride(W) words).  p < 2 writes a
+// table that gives 0 (x mod 1).
+template <int W>
+__device__ void raw_table_prime(uint32_t p, uint32_t* t) {
+  constexpr int B = raw_chunk_bits(W), N = raw_chunks(W, B);
+  constexpr int S = raw_table_stride(W);
+  const int s = p < 2 ? 0 : __clz(p);
+  const uint32_t d = p < 2 ? 1u << 31 : p << s;
+  const uint32_t v = (uint32_t)(~0ull / d);  // floor(..) - 2^32: its low word
+  uint32_t c = p < 2 ? 0 : 1u << s;
+  t[0] = c;
+  for (int k = 1; k < N; ++k) {
+    c = div_2by1((uint64_t)c << B, d, v);
+    t[k] = c;
+  }
+  for (int k = N; k < S - 4; ++k) t[k] = 0;
+  t[S - 4] = d;
+  t[S - 3] = v;
+  t[S - 2] = (uint32_t)s;
+  t[S - 1] = 0;
+}
+
+// Chunk k (bits [kB, kB + B)) of the W words w; k is a constant after
+// unrolling.
+template <int W, int B>
+__device__ __forceinline__ uint32_t raw_chunk(const uint32_t (&w)[W],
+                                              int k) {
+  const int bit = k * B, q = bit / 32, off = bit % 32;
+  uint32_t c = w[q] >> off;
+  if (off + B > 32 && q + 1 < W) c |= w[q + 1] << (32 - off);
+  return B == 32 ? c : c & ((1u << (B & 31)) - 1);
+}
+
+// Coefficients a thread owns (kThreads apart, so each load and store
+// stays coalesced): two share every constant read and the loop's overhead;
+// past 24 words their chunks would take too many registers.
+__host__ __device__ constexpr int raw_coefs(int w) { return w <= 24 ? 2 : 1; }
+
+template <int W>
+__global__ void __launch_bounds__(kThreads, 3)
 crt_from_raw_kernel(const uint32_t* __restrict__ raw,
                     const uint32_t* __restrict__ primes,
-                    uint32_t* __restrict__ out, int rows, int words, int pnum,
-                    int len) {
-  __shared__ uint64_t s_mu[PB];
-  __shared__ uint32_t s_p[PB];
-  const int p0 = blockIdx.z * PB;
-  const int np = pnum - p0 < PB ? pnum - p0 : PB;
-  for (int i = threadIdx.x; i < np; i += kThreads) {
-    const uint32_t p = primes[p0 + i];
-    s_p[i] = p;
-    s_mu[i] = ~0ull / p;
-  }
+                    uint32_t* __restrict__ out, int rows, int pnum, int len) {
+  constexpr int B = raw_chunk_bits(W), N = raw_chunks(W, B);
+  constexpr int S = raw_table_stride(W), C = raw_coefs(W);
+  extern __shared__ uint4 s_tab4[];
+  uint32_t* s_tab = reinterpret_cast<uint32_t*>(s_tab4);
+  const int p0 = blockIdx.z * kPrimeBlock;
+  const int np = pnum - p0 < kPrimeBlock ? pnum - p0 : kPrimeBlock;
+  for (int i = threadIdx.x; i < np; i += kThreads)
+    raw_table_prime<W>(primes[p0 + i], s_tab + i * S);
   __syncthreads();
-  const int j = blockIdx.x * kThreads + threadIdx.x;
+  const int j = blockIdx.x * kThreads * C + threadIdx.x;
   if (j >= len) return;
+  bool in[C];
+#pragma unroll
+  for (int e = 0; e < C; ++e) in[e] = j + e * kThreads < len;
   for (int row = blockIdx.y; row < rows; row += gridDim.y) {
-    const uint32_t* x = raw + (size_t)row * words * len + j;
-    uint32_t r[PB];
-    uint32_t w = x[(size_t)(words - 1) * len];
+    const uint32_t* x = raw + (size_t)row * W * len + j;
+    uint32_t c[C][N];
 #pragma unroll
-    for (int i = 0; i < PB; ++i)
-      if (i < np) r[i] = mod_p32(w, s_p[i], s_mu[i]);
-    for (int k = words - 2; k >= 0; --k) {
-      w = x[(size_t)k * len];
+    for (int e = 0; e < C; ++e) {
+      uint32_t w[W];
 #pragma unroll
-      for (int i = 0; i < PB; ++i)
-        if (i < np)
-          r[i] = mod_p32(((uint64_t)r[i] << 32) | w, s_p[i], s_mu[i]);
+      for (int k = 0; k < W; ++k)
+        w[k] = in[e] ? x[(size_t)k * len + e * kThreads] : 0u;
+#pragma unroll
+      for (int k = 0; k < N; ++k) c[e][k] = raw_chunk<W, B>(w, k);
     }
     uint32_t* o = out + ((size_t)row * pnum + p0) * len + j;
+    const uint4* t = reinterpret_cast<const uint4*>(s_tab);
+#pragma unroll 1
+    for (int i = 0; i < np; ++i, o += len, t += S / 4) {
+      uint64_t a0[C], a1[C];  // two chains each; their sum is below 2^32 d
 #pragma unroll
-    for (int i = 0; i < PB; ++i)
-      if (i < np) o[(size_t)i * len] = r[i];
+      for (int e = 0; e < C; ++e) a0[e] = a1[e] = 0;
+#pragma unroll
+      for (int k = 0; k < N; k += 4) {
+        const uint4 cv = t[k / 4];
+#pragma unroll
+        for (int e = 0; e < C; ++e) {
+          a0[e] = mad_wide(c[e][k], cv.x, a0[e]);
+          if (k + 1 < N) a1[e] = mad_wide(c[e][k + 1], cv.y, a1[e]);
+          if (k + 2 < N) a0[e] = mad_wide(c[e][k + 2], cv.z, a0[e]);
+          if (k + 3 < N) a1[e] = mad_wide(c[e][k + 3], cv.w, a1[e]);
+        }
+      }
+      const uint4 dv = t[S / 4 - 1];
+#pragma unroll
+      for (int e = 0; e < C; ++e)
+        if (in[e])
+          o[e * kThreads] = div_2by1(a0[e] + a1[e], dv.x, dv.y) >> dv.z;
+    }
   }
 }
 
@@ -155,80 +293,175 @@ icrt_split16_kernel(const uint32_t* __restrict__ x, int32_t* __restrict__ lo,
   }
 }
 
-// Combine: the summed halves [rows, words, len] rippled into words, value =
-// sum_w (lo_w + 2^16 hi_w) 2^(32 w), then M subtracted where the value is
-// at least M, at most max(1, n_shards - 1) times (the sum of n_shards
-// partials in [0, M) is below n_shards M): the plain version's conditional
-// subtracts, stopped at the first that subtracts nothing, after which the
-// rest subtract nothing either.  One thread owns one coefficient's words in
-// registers; the arithmetic is the plain version's int64 arithmetic on the
-// int32 sums, so any input gives its output bit for bit.
-__global__ void __launch_bounds__(kThreads)
+// Combine: the summed halves [rows, W, len] rippled into words, T = sum_w
+// (lo_w + 2^16 hi_w) 2^(32 w) = top 2^(32 W) + s (top the signed carry out
+// of the last word, |top| <= 2^15 + 1), then the plain version's rounds =
+// max(1, n_shards - 1) conditional subtracts of M, each taken where top > 0
+// or s >= M.  Their result is s - k M mod 2^(32 W) with
+//   k = min(floor(T' / M), rounds),  T' = max(top, 0) 2^(32 W) + s
+// (for top < 0 a subtract leaves top alone, so only s counts), and k comes
+// from a quotient estimate instead of up to 32766 rounds:
+//   * with L the bit length of M, M_t = floor(M 2^32 / 2^L), its top 32 bits
+//     (2^31 <= M_t < 2^32), and T_t = floor(T' 2^32 / 2^L) saturated at 2^48,
+//     the estimate q = floor(T_t / (M_t + 1)) (one 2/1 division by the
+//     block's reciprocal) is floor(T' / M) or one less while T_t < 2^48, and
+//     T_t >= 2^48 means floor(T' / M) >= 2^16 > rounds;
+//   * k = min(q, rounds); one pass subtracts k M from (top, s); where k <
+//     rounds and what is left is still at least M, one more subtract.
+// M = 0 (L = 0) subtracts nothing, as the plain version.  The words are u32
+// with a 32-bit carry chain; only the ripple's sum and the estimate are 64
+// bits wide.  W is a template parameter, so every word is a register; a
+// thread owns one coefficient and loads its 2 W halves at once, and the
+// launch bounds keep the registers at 64 (up to 24 words: 4 blocks an SM).
+template <int W>
+__global__ void __launch_bounds__(kThreads, W <= 24 ? 4 : 2)
 icrt_combine16_kernel(const int32_t* __restrict__ lo16,
                       const int32_t* __restrict__ hi16,
                       const uint32_t* __restrict__ m_words,
-                      uint32_t* __restrict__ out, int rows, int words, int len,
-                      int n_shards) {
-  __shared__ uint32_t s_m[kMaxWords];
-  for (int i = threadIdx.x; i < words; i += kThreads) s_m[i] = m_words[i];
+                      uint32_t* __restrict__ out, int rows, int len,
+                      int rounds) {
+  __shared__ uint32_t s_m[W];
+  __shared__ uint32_t s_est[3];  // L, M_t + 1, its reciprocal
+  for (int i = threadIdx.x; i < W; i += kThreads) s_m[i] = m_words[i];
   __syncthreads();
+  if (threadIdx.x == 0) {
+    int top = W - 1;
+    while (top > 0 && !s_m[top]) --top;
+    const int lead = 32 - __clz(s_m[top]);  // bits of M's top word, 0..32
+    const int L = s_m[top] ? 32 * top + lead : 0;
+    uint32_t mt = 0;
+    if (L) {
+      mt = s_m[top] << (32 - lead);
+      if (top && lead < 32) mt |= s_m[top - 1] >> lead;
+    }
+    s_est[0] = (uint32_t)L;
+    s_est[1] = mt + 1;  // 0 for M_t = 2^32 - 1: a divisor of 2^32
+    s_est[2] = mt + 1 ? (uint32_t)(~0ull / (mt + 1)) : 0;
+  }
+  __syncthreads();
+  const int L = (int)s_est[0];
+  const uint32_t md = s_est[1], mv = s_est[2];
+  const int wi = L / 32, sh = L % 32;
   const int j = blockIdx.x * kThreads + threadIdx.x;
   if (j >= len) return;
-  const int rounds = n_shards > 2 ? n_shards - 1 : 1;
   for (int row = blockIdx.y; row < rows; row += gridDim.y) {
-    const size_t base = (size_t)row * words * len + j;
-    int64_t s[kMaxWords];
-    int64_t carry = 0;
+    const size_t base = (size_t)row * W * len + j;
+    const int32_t* pl = lo16 + base;
+    const int32_t* ph = hi16 + base;
+    int32_t lo[W], hi[W];
 #pragma unroll
-    for (int w = 0; w < kMaxWords; ++w) {
-      if (w < words) {
-        const int64_t t = (int64_t)lo16[base + (size_t)w * len] +
-                          ((int64_t)hi16[base + (size_t)w * len] << 16) +
-                          carry;
-        s[w] = t & 0xFFFFFFFFll;
-        carry = t >> 32;
+    for (int w = 0; w < W; ++w, pl += len, ph += len) {
+      lo[w] = *pl;
+      hi[w] = *ph;
+    }
+    uint32_t s[W];
+    int32_t carry = 0;
+#pragma unroll
+    for (int w = 0; w < W; ++w) {
+      const int64_t t = (int64_t)lo[w] + (int64_t)hi[w] * 65536 + carry;
+      s[w] = (uint32_t)t;
+      carry = (int32_t)(t >> 32);
+    }
+    const uint32_t top = carry > 0 ? (uint32_t)carry : 0u;
+    // the window of T' 2^32 at bit L: words e[wi], e[wi + 1], e[wi + 2] of
+    // e = (0, s[0], .., s[W - 1], top, 0), and whether a higher one is set
+    uint32_t x0 = 0, x1 = 0, x2 = 0, above = 0;
+#pragma unroll
+    for (int i = 1; i <= W + 1; ++i) {
+      const uint32_t e = i <= W ? s[i - 1] : top;
+      x0 = i == wi ? e : x0;
+      x1 = i == wi + 1 ? e : x1;
+      x2 = i == wi + 2 ? e : x2;
+      above |= i > wi + 2 ? e : 0u;
+    }
+    const uint64_t a = ((uint64_t)x2 << 32) | x1;
+    uint32_t k = 0;
+    if (L) {
+      if (above || (a >> (16 + sh))) {
+        k = (uint32_t)rounds;
+      } else {
+        // T_t < 2^48, so T_t / (M_t + 1) is a 2/1 division (or a shift)
+        const uint64_t tt = (a << (32 - sh)) | (x0 >> sh);
+        uint32_t q = (uint32_t)(tt >> 32);
+        if (md) div_2by1(tt, md, mv, &q);
+        k = q < (uint32_t)rounds ? q : (uint32_t)rounds;
       }
     }
-    int64_t top = carry;
-    for (int it = 0; it < rounds; ++it) {
-      bool ge = top > 0, eq = true;
+    // (top', s) = T' - k M
+    uint32_t pc = 0, borrow = 0;
 #pragma unroll
-      for (int w = kMaxWords - 1; w >= 0; --w) {
-        if (w < words) {
-          const int64_t m = s_m[w];
-          ge = ge || (eq && s[w] > m);
-          eq = eq && s[w] == m;
-        }
-      }
-      if (!(ge || eq)) break;
-      int64_t borrow = 0;
-#pragma unroll
-      for (int w = 0; w < kMaxWords; ++w) {
-        if (w < words) {
-          const int64_t d = s[w] - (int64_t)s_m[w] - borrow;
-          borrow = d < 0;
-          s[w] = d & 0xFFFFFFFFll;
-        }
-      }
-      top -= borrow;
+    for (int w = 0; w < W; ++w) {
+      const uint64_t p = (uint64_t)k * s_m[w] + pc;
+      pc = (uint32_t)(p >> 32);
+      const uint64_t d = (uint64_t)s[w] - (uint32_t)p - borrow;
+      s[w] = (uint32_t)d;
+      borrow = (uint32_t)(d >> 63);
     }
-    uint32_t* o = out + (size_t)row * words * len + j;
+    const int64_t rest = (int64_t)top - pc - borrow;
+    if (k < (uint32_t)rounds) {  // k may be one short: subtract M once more
+      borrow = 0;                // where (rest, s) >= M
 #pragma unroll
-    for (int w = 0; w < kMaxWords; ++w)
-      if (w < words) o[(size_t)w * len] = (uint32_t)s[w];
+      for (int w = 0; w < W; ++w)
+        borrow = (uint32_t)(((uint64_t)s[w] - s_m[w] - borrow) >> 63);
+      if (rest > 0 || !borrow) {
+        borrow = 0;
+#pragma unroll
+        for (int w = 0; w < W; ++w) {
+          const uint64_t t = (uint64_t)s[w] - s_m[w] - borrow;
+          s[w] = (uint32_t)t;
+          borrow = (uint32_t)(t >> 63);
+        }
+      }
+    }
+    uint32_t* o = out + base;
+#pragma unroll
+    for (int w = 0; w < W; ++w, o += len) *o = s[w];
   }
 }
 
-template <int PB>
-void launch_crt_from_raw(const uint32_t* raw, const uint32_t* primes,
-                         uint32_t* out, int rows, int words, int pnum, int len,
-                         cudaStream_t stream) {
-  const dim3 grid((len + kThreads - 1) / kThreads, grid_y(rows),
-                  (pnum + PB - 1) / PB);
-  crt_from_raw_kernel<PB><<<grid, kThreads, 0, stream>>>(raw, primes, out,
-                                                         rows, words, pnum,
-                                                         len);
+// Every width 1..32 of K5 and K8 (kMaxWords, ops/crt.py MAX_WORDS).
+#define CUHE_CRT_WIDTHS(X)                                                   \
+  X(1) X(2) X(3) X(4) X(5) X(6) X(7) X(8) X(9) X(10) X(11) X(12) X(13)      \
+  X(14) X(15) X(16) X(17) X(18) X(19) X(20) X(21) X(22) X(23) X(24) X(25)   \
+  X(26) X(27) X(28) X(29) X(30) X(31) X(32)
+
+// Launch K5 at `words`.
+cudaError_t crt_from_raw_dispatch(const uint32_t* raw, const uint32_t* primes,
+                                  uint32_t* out, int rows, int words,
+                                  int pnum, int len, cudaStream_t stream) {
+  const int np = pnum < kPrimeBlock ? pnum : kPrimeBlock;
+#define CUHE_K5_WIDTH(w)                                                    \
+  case w: {                                                                 \
+    const int span = kThreads * raw_coefs(w);                               \
+    const dim3 grid((len + span - 1) / span, grid_y(rows),                  \
+                    (pnum + kPrimeBlock - 1) / kPrimeBlock);                \
+    crt_from_raw_kernel<w><<<grid, kThreads,                                \
+                             (size_t)np * raw_table_stride(w) * 4,          \
+                             stream>>>(raw, primes, out, rows, pnum, len);   \
+    return cudaGetLastError();                                              \
+  }
+  switch (words) { CUHE_CRT_WIDTHS(CUHE_K5_WIDTH) }
+#undef CUHE_K5_WIDTH
+  return cudaErrorInvalidValue;
 }
+
+// Launch K8's combine at `words`.
+cudaError_t icrt_combine16_dispatch(const int32_t* lo16, const int32_t* hi16,
+                                    const uint32_t* m_words, uint32_t* out,
+                                    int rows, int words, int len, int rounds,
+                                    cudaStream_t stream) {
+  const dim3 grid((len + kThreads - 1) / kThreads, grid_y(rows));
+#define CUHE_K8_WIDTH(w)                                                    \
+  case w:                                                                   \
+    icrt_combine16_kernel<w><<<grid, kThreads, 0, stream>>>(                \
+        lo16, hi16, m_words, out, rows, len, rounds);                       \
+    return cudaGetLastError();
+  switch (words) { CUHE_CRT_WIDTHS(CUHE_K8_WIDTH) }
+#undef CUHE_K8_WIDTH
+  return cudaErrorInvalidValue;
+}
+
+#undef CUHE_CRT_WIDTHS
 
 }  // namespace
 
@@ -240,17 +473,10 @@ int cuhe_crt_from_raw(const uint32_t* raw, const uint32_t* primes,
                       uint32_t* out, int rows, int words, int pnum, int len,
                       cudaStream_t stream) {
   if (rows <= 0 || words < 1 || words > kMaxWords || pnum <= 0 || len <= 0 ||
-      (pnum + 31) / 32 > kMaxGridY)
+      (pnum + kPrimeBlock - 1) / kPrimeBlock > kMaxGridY)
     return (int)cudaErrorInvalidValue;
-  // the smallest register block that holds every prime; past 32, blocks of
-  // 32 (each reads the words again)
-  if (pnum <= 8)
-    launch_crt_from_raw<8>(raw, primes, out, rows, words, pnum, len, stream);
-  else if (pnum <= 16)
-    launch_crt_from_raw<16>(raw, primes, out, rows, words, pnum, len, stream);
-  else
-    launch_crt_from_raw<32>(raw, primes, out, rows, words, pnum, len, stream);
-  return (int)cudaGetLastError();
+  return (int)crt_from_raw_dispatch(raw, primes, out, rows, words, pnum, len,
+                                    stream);
 }
 
 // x, out: u32 [rows, len], row r of plane r % pnum; primes: u32 [pnum];
@@ -289,18 +515,17 @@ int cuhe_icrt_split16(const uint32_t* x, int32_t* out, int count,
 }
 
 // lo16, hi16: int32 [rows, words, len]; m_words: u32 [words]; out: u32
-// [rows, words, len]; 1 <= words <= 32.
+// [rows, words, len]; 1 <= words <= 32, 1 <= n_shards < 2^15.
 int cuhe_icrt_combine16(const int32_t* lo16, const int32_t* hi16,
                         const uint32_t* m_words, uint32_t* out, int rows,
                         int words, int len, int n_shards,
                         cudaStream_t stream) {
   if (rows <= 0 || words < 1 || words > kMaxWords || len <= 0 ||
-      n_shards < 1)
+      n_shards < 1 || n_shards >= 1 << 15)
     return (int)cudaErrorInvalidValue;
-  const dim3 grid((len + kThreads - 1) / kThreads, grid_y(rows));
-  icrt_combine16_kernel<<<grid, kThreads, 0, stream>>>(
-      lo16, hi16, m_words, out, rows, words, len, n_shards);
-  return (int)cudaGetLastError();
+  return (int)icrt_combine16_dispatch(lo16, hi16, m_words, out, rows, words,
+                                      len, n_shards > 2 ? n_shards - 1 : 1,
+                                      stream);
 }
 
 }  // extern "C"

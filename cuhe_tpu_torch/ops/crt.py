@@ -1,10 +1,11 @@
 """CRT decomposition of RAW multiword coefficients, and its inverse.
 
 `crt_from_raw`, the counterpart of ``cuhe_tpu/ops/crt.py:25-41``, reduces
-each coefficient mod each prime by Horner over its words: the front end of
-a hand-written kernel (K5, ``csrc/crt_ops.cu``) for a CUDA tensor, and of
-its plain version `crt_from_raw_plain` for a CPU tensor (the JAX package
-leaves this work to XLA).
+each coefficient mod each prime: the front end of a hand-written kernel
+(K5, ``csrc/crt_ops.cu``: a dot product of the coefficient's bit chunks with
+per-prime constants, one reduction per residue) for a CUDA tensor, and of
+its plain version `crt_from_raw_plain` (Horner over the words) for a CPU
+tensor (the JAX package leaves this work to XLA).
 
 The inverse is the counterpart of ``cuhe_tpu/ops/crt.py:43-162``: for each
 coefficient
@@ -230,7 +231,8 @@ def icrt_combine_halves(lo16: torch.Tensor, hi16: torch.Tensor,
     words [words], uint32 (or int64 values, which a CUDA call converts).
     The halves are rippled into words (value = sum_w (lo16_w + 2^16 hi16_w)
     2^(32 w)), and the total, below n_shards * M, is brought into [0, M) by
-    n_shards - 1 conditional subtracts of M.  Returns uint32 [.., words, L].
+    n_shards - 1 conditional subtracts of M (the kernel computes their
+    count from one quotient estimate).  Returns uint32 [.., words, L].
     On the card: K8's combine, one launch.
     """
     for name, t in (("lo16", lo16), ("hi16", hi16)):

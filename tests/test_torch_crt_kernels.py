@@ -4,7 +4,8 @@ plain version, against the JAX package bit for bit (tolerance 0):
 
   * K5 `crt.crt_from_raw` against `cuhe_tpu.ops.crt.crt_from_raw` at 1, 5,
     20 and 32 words and 1, 7 and 25 primes, with rows of words 0, 1 and
-    2^32 - 1;
+    2^32 - 1, and at 1, 17 and 32 words with the small primes 2, 3, 251,
+    65521, 65537, with primes just below 2^32 and with both in one call;
   * K6 `pointwise.ntt_add` / `ntt_add_nx1` against `modp.add_modp` and
     `ntt_add_nx1`, y full-shaped, a [pnum, n] table and a plaintext's [n],
     at the canonical edge words (P - 1 in every pairing);
@@ -13,9 +14,16 @@ plain version, against the JAX package bit for bit (tolerance 0):
     1) against the JAX functions, and PRINCE's round constants and NOT
     (`crt_add_int_rows`, `crt_add_int`) on the light ring against
     `cuhe_tpu/models/prince.py`;
-  * K8 `crt.icrt_split_halves` and `icrt_combine_halves` on 2, 3 and 4
-    shards of partials M - 1, 0 and random against JAX's
+  * K8 `crt.icrt_split_halves` and `icrt_combine_halves` on 1, 2, 3, 4, 5
+    and 8 shards of partials M - 1, 0 and random against JAX's
     `icrt_psum_combine` (its psum under `jax.vmap`).
+
+The kernels' arithmetic by hand in Python ints (csrc/crt_ops.cu has no CPU
+run): K5's chunk widths keep its 64-bit sum below 2^32 d, and its dot
+product and 2/1 division give the plain version's residues; K8's clamped
+quotient equals the plain version's conditional subtracts, its estimate is
+exact after one fix, and chip_smoke.py's `combine_ref` (which holds the
+kernel on MAX_SHARDS shards on the card) equals the plain version.
 
 Also: the front ends' shape and dtype rules on the CPU, the plain versions
 count no call on the CPU, and chip_smoke.py's byte bounds of K5-K8 equal a
@@ -113,6 +121,43 @@ def test_crt_from_raw_matches_jax(words, pnum):
     _eq(got, want)
     # and against Python ints on the edge rows
     for r in range(3):
+        ints = hm.words_to_ints(raw[r])
+        np.testing.assert_array_equal(
+            got[r].numpy(), [[v % int(p) for v in ints] for p in primes])
+
+
+def _below_2_32(count):
+    chain, v = [], 1 << 32
+    while len(chain) < count:
+        v = hm.prev_prime(v - 1)
+        chain.append(v)
+    return chain
+
+
+SMALL_PRIMES = [2, 3, 251, 65521, 65537]
+# five primes each: one JAX shape a word count
+PRIME_SETS = {
+    "small": SMALL_PRIMES,
+    "below-2^32": _below_2_32(5),
+    "mixed": [2, _below_2_32(1)[0], 251, _below_2_32(2)[1], 65537],
+}
+
+
+@pytest.mark.parametrize("which", list(PRIME_SETS))
+@pytest.mark.parametrize("words", [1, 17, 32])
+def test_crt_from_raw_matches_jax_at_small_and_large_primes(words, which):
+    """K5's normalising shift runs from 30 bits (p = 2, 3) to 0 (p just
+    below 2^32), and its chunk widths from 32 bits (1 word) to 26 (32)."""
+    rng = np.random.default_rng(300 + words)
+    raw = rng.integers(0, 1 << 32, size=(4, words, 32),
+                       dtype=np.uint64).astype(np.uint32)
+    raw[0], raw[1], raw[2] = 0, 1, 0xFFFFFFFF
+    primes = np.array(PRIME_SETS[which], dtype=np.uint32)
+    got = crt.crt_from_raw(*_t(raw, primes))
+    want = jcrt.crt_from_raw(jnp.asarray(raw), jnp.asarray(primes),
+                             _mus(primes))
+    _eq(got, want)
+    for r in range(4):
         ints = hm.words_to_ints(raw[r])
         np.testing.assert_array_equal(
             got[r].numpy(), [[v % int(p) for v in ints] for p in primes])
@@ -224,7 +269,7 @@ def test_prince_round_constants_and_not_match_jax(light_princes, lvl):
 
 # ---- K8: the crt-sharded ICRT's split and combine ----
 
-@pytest.mark.parametrize("n_shards", [2, 3, 4])
+@pytest.mark.parametrize("n_shards", [1, 2, 3, 4, 5, 8])
 def test_icrt_split_and_combine_match_jax(n_shards):
     """Partials M - 1 on every shard (the most subtracts), 0, and random
     partials below M, at the light ring's M (5 words): the halves summed
@@ -256,6 +301,168 @@ def test_icrt_split_and_combine_match_jax(n_shards):
     sums = [sum(hm.words_to_ints(v[0])[j] for v in parts) % q
             for j in range(16)]
     assert hm.words_to_ints(got[0].numpy()) == sums
+
+
+# ---- the kernels' arithmetic by hand (csrc/crt_ops.cu) ----
+
+M32 = 0xFFFFFFFF
+
+
+def _chunk_bits(words):
+    """K5's chunk width B (raw_chunk_bits): the widest with N 2^B <= 2^32,
+    N = ceil(32 words / B) chunks."""
+    b = 32
+    while -(-32 * words // b) << b > 1 << 32:
+        b -= 1
+    return b
+
+
+def _div_2by1(u, d, v):
+    """(q, r) of u = q d + r as `div_2by1` computes them in u32 words."""
+    u1, u0 = u >> 32, u & M32
+    e = v * u1 + u
+    assert e < 1 << 64                  # v u1 + u does not overflow
+    q1 = ((e >> 32) + 1) & M32
+    r = (u0 - q1 * d) & M32
+    if r > e & M32:
+        q1, r = (q1 - 1) & M32, (r + d) & M32
+    if r >= d:
+        q1, r = q1 + 1, r - d
+    return q1, r
+
+
+def _normalised(p):
+    """K5's and K8's (d, v, s): d = p 2^s in [2^31, 2^32), v its
+    reciprocal floor((2^64 - 1) / d) - 2^32."""
+    s = 32 - p.bit_length()
+    d = p << s
+    return d, ((1 << 64) - 1) // d - (1 << 32), s
+
+
+def _k5_model(coeff, words, p):
+    """K5 on one coefficient (a Python int of `words` words) and prime p
+    >= 2: the chunks' dot product with the table of p, one 2/1 division."""
+    b = _chunk_bits(words)
+    n = -(-32 * words // b)
+    d, v, s = _normalised(p)
+    c, table = 1 << s, []
+    for _ in range(n):                   # raw_table_prime
+        table.append(c)
+        c = _div_2by1(c << b, d, v)[1]
+    total = sum(((coeff >> (k * b)) & ((1 << b) - 1)) * table[k]
+                for k in range(n))
+    assert total < d << 32               # so below 2^64: one u64 holds it
+    return _div_2by1(total, d, v)[1] >> s
+
+
+@pytest.mark.parametrize("words", range(1, 33))
+def test_crt_from_raw_kernel_arithmetic_by_hand(words):
+    """Every width: N chunks of B bits cover the words and N 2^B <= 2^32,
+    so the sum of N products (each below 2^B d) is below 2^32 d < 2^64;
+    the model gives x mod p at the extremes of x and p."""
+    b = _chunk_bits(words)
+    n = -(-32 * words // b)
+    assert n * b >= 32 * words and n << b <= 1 << 32
+    assert {1: (32, 1), 20: (27, 24), 32: (26, 40)}.get(words, (b, n)) == (b, n)
+    top = (1 << (32 * words)) - 1
+    rng = np.random.default_rng(words)
+    xs = [0, 1, top, top - 1, 1 << (32 * words - 1)] + [
+        int.from_bytes(rng.bytes(4 * words), "little") for _ in range(3)]
+    for p in SMALL_PRIMES + _below_2_32(2) + [(1 << 31) + 11]:
+        d, _, _ = _normalised(p)
+        assert n * ((1 << b) - 1) * (d - 1) < d << 32 <= 1 << 64
+        assert [_k5_model(x, words, p) for x in xs] == [x % p for x in xs]
+
+
+def _plain_subtracts(total, m, rounds):
+    """`rounds` conditional subtracts of M from a non-negative total, each
+    where the total is at least M (the plain combine for top >= 0)."""
+    for _ in range(rounds):
+        if total >= m:
+            total -= m
+    return total
+
+
+def _k8_model(s, top, m, words, rounds):
+    """K8's combine on one coefficient: s the rippled words (an int below
+    2^(32 words)), top the signed carry; the quotient estimate from the
+    window of T' 2^32 at M's bit length, clamped, one pass, one fix."""
+    t = (max(top, 0) << (32 * words)) + s
+    big = m.bit_length()
+    if not big:
+        return s
+    mt = (m << 32) >> big                # M_t, in [2^31, 2^32)
+    tt = (t << 32) >> big                # T_t
+    if tt >= 1 << 48:
+        k = rounds
+    else:
+        md = mt + 1
+        q = tt >> 32 if md == 1 << 32 else _div_2by1(
+            tt, md, ((1 << 64) - 1) // md - (1 << 32))[0]
+        assert q in (t // m, t // m - 1)
+        k = min(q, rounds)
+    rest = t - k * m
+    assert rest >= 0
+    if k < rounds and rest >= m:
+        rest -= m
+    return rest % (1 << (32 * words))
+
+
+@pytest.mark.parametrize("n_shards", [1, 2, 3, 5, 8, 64, crt.MAX_SHARDS])
+def test_icrt_combine_quotient_clamp_by_hand(n_shards):
+    """For non-negative totals T below n_shards M and above it, T - min(
+    floor(T / M), rounds) M equals `rounds` conditional subtracts, and the
+    kernel's estimate gives it; at any M (one word under 5, all ones, a
+    power of two)."""
+    rounds = max(1, n_shards - 1)
+    rng = np.random.default_rng(n_shards)
+    words = 5
+    q = make_params(*LIGHT).icrt_consts(0)[0]
+    for m in (q, 1, 3, (1 << 32) - 5, (1 << 160) - 1, 1 << 159):
+        limit = min(n_shards, 70) * m
+        totals = [0, m - 1, m, limit - 1, limit, limit + m, 2 * limit]
+        totals += [int.from_bytes(rng.bytes(24), "little") % (2 * limit + 1)
+                   for _ in range(40)]
+        for total in totals:
+            want = total - min(total // m, rounds) * m
+            if rounds <= 64:
+                assert _plain_subtracts(total, m, rounds) == want
+            s, top = total % (1 << 160), total >> 160
+            if top < 1 << 15:
+                assert _k8_model(s, top, m, words, rounds) == want % (1 << 160)
+
+
+@pytest.mark.parametrize("n_shards", [1, 2, 5, 64])
+def test_combine_ref_matches_the_plain_combine_on_any_halves(n_shards):
+    """chip_smoke.combine_ref (the card's check at MAX_SHARDS shards) and
+    K8's model equal the plain version on int32 halves of any value: a
+    negative top word, carries both ways, M = 0, 1 and all ones."""
+    rng = np.random.default_rng(70 + n_shards)
+    words = 5
+    lo = rng.integers(-1 << 31, 1 << 31, size=(2, words, 24), dtype=np.int64)
+    hi = rng.integers(-1 << 31, 1 << 31, size=(2, words, 24), dtype=np.int64)
+    lo[1] = rng.integers(-3, 1 << 18, size=(words, 24))
+    hi[1] = rng.integers(-3, 1 << 18, size=(words, 24))
+    hi[1, :, :4] = (1 << 31) - 1
+    q = make_params(*LIGHT).icrt_consts(0)[0]
+    tl, th = (torch.from_numpy(v.astype(np.int32)) for v in (lo, hi))
+    rounds = max(1, n_shards - 1)
+    for m in (q, 0, 1, (1 << 160) - 1):
+        mw = torch.tensor([(m >> (32 * i)) & M32 for i in range(words)],
+                          dtype=torch.int64)
+        want = crt.icrt_combine_halves_plain(tl, th, mw, n_shards)
+        ref = chip_smoke.combine_ref(lo.tolist(), hi.tolist(), m, n_shards)
+        assert modp.to_i64(want).tolist() == ref
+        for r in range(2):
+            for j in range(24):
+                carry = s = 0
+                for w in range(words):
+                    t = int(lo[r, w, j]) + int(hi[r, w, j]) * 65536 + carry
+                    s |= (t & M32) << (32 * w)
+                    carry = t >> 32
+                got = _k8_model(s, carry, m, words, rounds)
+                assert got == sum(ref[r][w][j] << (32 * w)
+                                  for w in range(words))
 
 
 # ---- the front ends' rules on the CPU, and the plain versions' counts ----
