@@ -20,19 +20,9 @@ from cuhe_tpu.utils import checkpoint as jckpt
 from cuhe_tpu_torch import api, poly
 from cuhe_tpu_torch.ops import ntt
 from cuhe_tpu_torch.utils import checkpoint as ckpt
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 CFG = (3, 2, 16, 50, 25, 8191)
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    """One PyTorch intra-op thread while this module runs: the test workers
-    share the machine's cores, and each worker's spinning OpenMP threads
-    multiplied these tests' CPU time several times over."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 @pytest.fixture(scope="module")

@@ -15,6 +15,7 @@ from cuhe_tpu.ops import barrett as jbarrett
 from cuhe_tpu.ops import pointwise as jpw
 from cuhe_tpu.params import make_params
 from cuhe_tpu_torch.ops import barrett, pointwise
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 CFG = (3, 2, 16, 50, 25, 8191)
 

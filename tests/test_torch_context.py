@@ -10,6 +10,7 @@ from cuhe_tpu.context import Context as JContext
 from cuhe_tpu.params import make_params as jmake_params
 from cuhe_tpu_torch.context import Context
 from cuhe_tpu_torch.params import make_params
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 CFG = (3, 2, 16, 50, 25, 8191)
 

@@ -16,6 +16,7 @@ from cuhe_tpu.ops import modp as jmodp
 from cuhe_tpu.params import make_params
 from cuhe_tpu_torch import hostmath as hm
 from cuhe_tpu_torch.ops import crt
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
 @pytest.mark.parametrize("cfg,fused", [((3, 2, 16, 50, 25, 8191), True),

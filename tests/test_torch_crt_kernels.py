@@ -51,21 +51,12 @@ from cuhe_tpu_torch.models import prince as pr
 from cuhe_tpu_torch.ops import _cuda, crt, modp
 from cuhe_tpu_torch.ops import pointwise as pw
 from cuhe_tpu_torch.params import make_params
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 PRINCE = (25, 2, 16, 25, 25, 21845)      # 25 primes, 20 words at level 0
 LIGHT = chip_smoke.LIGHT_PRINCE          # tests/test_prince.py's light ring
 P = modp.P
 CANON = (0, 1, 2, (1 << 32) - 1, 1 << 32, (1 << 63) - 1, 1 << 63, P - 2, P - 1)
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    """One PyTorch intra-op thread while this module runs (the test workers
-    share the machine's cores)."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _eq(got, want):

@@ -12,25 +12,14 @@ CuDHS(5, 2, 1, 61, 20, 8191), runs on the card in chip_smoke.py):
 
 import numpy as np
 import pytest
-import torch
 
 from cuhe_tpu import poly as jpoly
 from cuhe_tpu.dhs import CuDHS as JCuDHS
 from cuhe_tpu_torch import poly
 from cuhe_tpu_torch.dhs import CuDHS
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 CFG = (3, 2, 16, 50, 25, 8191)
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    """One PyTorch intra-op thread while this module runs: the test workers
-    share the machine's cores, and each worker's spinning OpenMP threads
-    multiplied these tests' CPU time several times over."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 @pytest.fixture(scope="module")

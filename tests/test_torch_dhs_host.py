@@ -13,6 +13,7 @@ from cuhe_tpu_torch import hostmath as hm
 from cuhe_tpu_torch import serialize as ser
 from cuhe_tpu_torch.dhs import Batcher
 from cuhe_tpu_torch.params import make_params
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
 def _keygen_f(rng, mod_len, q):

@@ -9,6 +9,7 @@ import torch
 
 import __graft_entry__ as jax_entry
 from cuhe_tpu_torch import entry
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
 def test_gate_step_matches_jax_entry():

@@ -24,6 +24,7 @@ from cuhe_tpu_torch import entry, hostlib
 from cuhe_tpu_torch import hostmath as hm
 from cuhe_tpu_torch.dhs import CuDHS
 from cuhe_tpu_torch.params import make_params
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 REPO = Path(__file__).resolve().parent.parent
 SMALL_M = 127

@@ -18,6 +18,7 @@ from cuhe_tpu_torch.ops import _cuda
 from cuhe_tpu_torch.ops import ntt_kernels as nk
 from cuhe_tpu_torch.params import make_params
 from cuhe_tpu_torch.utils import checkpoint
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 REPO = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((REPO / "cuhe_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]

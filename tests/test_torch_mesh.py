@@ -36,6 +36,7 @@ from cuhe_tpu.parallel import mesh as jmesh
 from cuhe_tpu_torch.ops import crt
 from cuhe_tpu_torch.parallel import mesh as pmesh
 from cuhe_tpu_torch.parallel import run
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 SPAWN_TIMEOUT = 240.0
 

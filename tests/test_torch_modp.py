@@ -9,6 +9,7 @@ import torch
 
 from cuhe_tpu.ops import modp as jmodp
 from cuhe_tpu_torch.ops import modp
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 P = modp.P
 N = 1 << 12

@@ -12,6 +12,7 @@ from cuhe_tpu.ops import modp as jmodp
 from cuhe_tpu.ops import ntt_kernels as jnk
 from cuhe_tpu_torch.ops import modp, ntt
 from cuhe_tpu_torch.ops import ntt_kernels as nk
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 PRIMES = np.array([4294967291, 65537, 7681], np.uint32)
 

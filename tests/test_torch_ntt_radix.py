@@ -17,6 +17,7 @@ from cuhe_tpu_torch.params import make_params
 from cuhe_tpu_torch.entry import PRINCE_PARAMS
 from cuhe_tpu_torch.probes import ablate
 from cuhe_tpu_torch.probes.timing import radix16_products
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 P = modp.P
 SIZES = (16384, 32768, 65536)

@@ -36,23 +36,13 @@ from cuhe_tpu_torch.ops import ntt_kernels as nk
 from cuhe_tpu_torch.ops import pointwise as pw
 from cuhe_tpu_torch.parallel.mesh import crt_split
 from cuhe_tpu_torch.step import GateStep
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 ENTRY = (3, 2, 16, 50, 25, 8191)       # n = 16384, mod_len 8190 < n/2
 P = modp.P
 # pair words at the edges of Z_P and of 64 bits (mul_modp takes a, b < 2^64)
 EDGE_WORDS = (0, 1, 2, P - 2, P - 1, P, P + 1, (1 << 32) - 1, 1 << 32,
               (1 << 63) + 5, (1 << 64) - 2, (1 << 64) - 1)
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    """One PyTorch intra-op thread while this module runs: the test workers
-    share the machine's cores, and the plain NTTs' spinning OpenMP threads
-    multiplied these tests' time several times over."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 @pytest.fixture(scope="module")

@@ -23,22 +23,12 @@ from cuhe_tpu_torch.ops import crt
 from cuhe_tpu_torch.ops import pointwise as pw
 from cuhe_tpu_torch.params import make_params
 from cuhe_tpu_torch.step import GateStep
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 CFG = (3, 2, 16, 50, 25, 8191)
 # levels 0 and 1 (level 2, the last, is reached by mod_switch_to): each
 # level of each conversion is one more XLA compile on the JAX side
 LEVELS = (0, 1)
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    """One PyTorch intra-op thread while this module runs: the test workers
-    share the machine's cores, and each worker's spinning OpenMP threads
-    multiplied these tests' CPU time several times over."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 @pytest.fixture(scope="module")

@@ -29,19 +29,9 @@ from cuhe_tpu.params import make_params as jmake_params
 from cuhe_tpu_torch.context import Context
 from cuhe_tpu_torch.models import prince as pr
 from cuhe_tpu_torch.params import make_params
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 CFG = (3, 2, 16, 50, 25, 8191)
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    """One PyTorch intra-op thread while this module runs: the test workers
-    share the machine's cores, and each worker's spinning OpenMP threads
-    multiplied these tests' CPU time several times over."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def test_tables_and_known_answers_equal_jax():

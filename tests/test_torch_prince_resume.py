@@ -19,27 +19,16 @@ import copy
 
 import numpy as np
 import pytest
-import torch
 
 from cuhe_tpu.utils import checkpoint as jckpt
 from cuhe_tpu_torch.dhs import CuDHS
 from cuhe_tpu_torch.models import prince as pr
 from cuhe_tpu_torch.utils import checkpoint as ckpt
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 CFG = (5, 2, 16, 50, 25, 8191)
 SEED = 13
 A, B, C = [0] * 64, [1] * 64, [0] * 64
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    """One PyTorch intra-op thread while this module runs: the test workers
-    share the machine's cores, and each worker's spinning OpenMP threads
-    multiplied these tests' CPU time several times over."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 @pytest.fixture(scope="module")

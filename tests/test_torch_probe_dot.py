@@ -17,6 +17,7 @@ import pytest
 import torch
 
 from cuhe_tpu_torch.probes import calib
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
 @pytest.mark.parametrize("m,n,grid,sms", [

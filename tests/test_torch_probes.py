@@ -33,6 +33,7 @@ from cuhe_tpu.ops import ntt_kernels as jnk
 from cuhe_tpu_torch.ops import modp, ntt
 from cuhe_tpu_torch.ops import ntt_kernels as nk
 from cuhe_tpu_torch.probes import ablate, calib
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 REPO = Path(__file__).resolve().parent.parent
 SCRIPTS = ("tpu_probe_calib", "tpu_probe_inv_ablate", "tpu_probe_fwd32_ablate")

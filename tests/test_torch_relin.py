@@ -14,6 +14,7 @@ from cuhe_tpu.ops import ntt_kernels as jnk
 from cuhe_tpu.ops import relin as jrelin
 from cuhe_tpu_torch.ops import ntt_kernels as nk
 from cuhe_tpu_torch.ops import relin
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 N = 16384
 

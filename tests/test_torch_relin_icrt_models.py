@@ -28,6 +28,7 @@ from cuhe_tpu_torch.entry import ENTRY_PARAMS, PRINCE_PARAMS
 from cuhe_tpu_torch.ops import crt, modp
 from cuhe_tpu_torch.ops import ntt_kernels as nk
 from cuhe_tpu_torch.params import make_params
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 P = modp.P
 M32 = 0xFFFFFFFF

@@ -12,6 +12,7 @@ import torch
 from cuhe_tpu.utils import debug as jdebug
 from cuhe_tpu.utils import timer as jtimer
 from cuhe_tpu_torch.utils import debug, timer
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 P = (1 << 64) - (1 << 32) + 1
 M32 = (1 << 32) - 1
