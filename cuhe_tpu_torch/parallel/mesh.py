@@ -19,13 +19,23 @@ is a grid of ``torch.distributed`` ranks, one device each, over two axes:
 Each rank runs the port's kernels on its own slice, so the sharded step
 launches every kernel of the unsharded one, at its slice's shapes.  The
 collectives go through `Axis`: a uint32 tensor travels as its int32 bit
-cast (no collective of Gloo or NCCL takes uint32).  While a `CommStats` is
-attached (`Mesh.time_collectives`), each collective's time, with the
-device synchronised before and after it, is added to it; otherwise a
-collective is just the call.  Nothing is overlapped with the kernels yet.
+cast (no collective of Gloo or NCCL takes uint32).  Each collective runs
+inside a ``torch.profiler.record_function`` range ``mesh.<collective>``, so
+a trace names its device kernel and any idle gap around it.  While a
+`CommStats` is attached (`Mesh.count_collectives`), each collective's calls
+and bytes are added to it on the host, with no device synchronisation;
+`Mesh.time_collectives` also adds its seconds, with the device
+synchronised before and after it (a probe's reading: it stalls the
+stream).  Otherwise a collective is just the call.  Nothing is overlapped
+with the kernels yet.
 Gloo takes CUDA tensors in all four collectives used here (all_reduce,
 broadcast, all_gather, all_to_all_single; PyTorch 2.11), carrying them
 through the host, so ranks that share one card run over Gloo.
+
+`graph_step` captures a rank's step as CUDA graphs cut at its collectives,
+for a rank that runs the same step again and again (a resident mesh,
+``session.py``): its host then launches a step for far less than the card
+takes to run it.
 
 `ntt_fwd_sharded` is one length-n forward NTT across the ranks of an axis:
 B1's column pass on a block of columns, an all-to-all at the four-step
@@ -64,10 +74,14 @@ def _u32(t: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
 
 @dataclass
 class CommStats:
-    """Seconds and calls of a mesh's collectives, by collective."""
+    """Calls, bytes and seconds of a mesh's collectives, by collective.  The
+    bytes of a call are those of its result on this rank (an all-gather's
+    whole output); seconds are added only while the collectives are timed
+    (`Mesh.time_collectives`)."""
 
     seconds: collections.Counter = field(default_factory=collections.Counter)
     calls: collections.Counter = field(default_factory=collections.Counter)
+    bytes: collections.Counter = field(default_factory=collections.Counter)
 
 
 @dataclass(eq=False)
@@ -81,27 +95,41 @@ class Axis:
     index: int
     group: object = None
     stats: CommStats | None = None
+    timed: bool = False
+    cut: object = None  # set while `graph_step` captures a step
 
     @property
     def size(self) -> int:
         return len(self.ranks)
 
-    def _run(self, op: str, fn, *tensors) -> None:
+    def _run(self, op: str, fn, *tensors, nbytes: int | None = None) -> None:
         """fn(*tensors), a torch.distributed call that writes its results
-        into `tensors`; with `stats`, timed with the device synchronised
-        around it."""
-        if self.stats is None:
-            fn(*tensors)
+        into `tensors`, inside the profiler range ``mesh.<op>``; with
+        `stats`, its call and its result's bytes (default: the first
+        tensor's) are counted, and with `timed` it is timed with the device
+        synchronised around it.  While a step is captured (`cut`), the
+        call is not made but handed to `cut`, to run between the graphs."""
+        if self.cut is not None:
+            self.cut(lambda: self._run(op, fn, *tensors, nbytes=nbytes))
             return
-        cuda = tensors[0].is_cuda
-        if cuda:
-            torch.cuda.synchronize(tensors[0].device)
-        t0 = time.perf_counter()
-        fn(*tensors)
-        if cuda:
-            torch.cuda.synchronize(tensors[0].device)
-        self.stats.seconds[op] += time.perf_counter() - t0
-        self.stats.calls[op] += 1
+        with torch.profiler.record_function(f"mesh.{op}"):
+            st = self.stats
+            if st is None:
+                fn(*tensors)
+                return
+            st.calls[op] += 1
+            st.bytes[op] += tensors[0].nbytes if nbytes is None else nbytes
+            if not self.timed:
+                fn(*tensors)
+                return
+            cuda = tensors[0].is_cuda
+            if cuda:
+                torch.cuda.synchronize(tensors[0].device)
+            t0 = time.perf_counter()
+            fn(*tensors)
+            if cuda:
+                torch.cuda.synchronize(tensors[0].device)
+            st.seconds[op] += time.perf_counter() - t0
 
     def all_reduce_sum(self, t: torch.Tensor) -> torch.Tensor:
         """The sum of t (int32 or int64) over the axis, in place."""
@@ -120,7 +148,8 @@ class Axis:
         w = _i32(t.contiguous())
         out = [torch.empty_like(w) for _ in range(self.size)]
         self._run("all_gather", lambda *x: dist.all_gather(
-            list(x[:-1]), x[-1], group=self.group), *out, w)
+            list(x[:-1]), x[-1], group=self.group), *out, w,
+            nbytes=self.size * w.nbytes)
         return _u32(torch.stack(out), t)
 
     def all_to_all(self, t: torch.Tensor) -> torch.Tensor:
@@ -160,10 +189,18 @@ class Mesh:
         self.crt = Axis("crt", ranks[self.b * n_crt:(self.b + 1) * n_crt],
                         self.c, crt_group)
 
+    def count_collectives(self, stats: CommStats | None, *,
+                          timed: bool = False) -> None:
+        """Add the calls and bytes of each collective on either axis to
+        `stats`, on the host; with `timed`, also its seconds, with the
+        device synchronised around it.  None stops the counting."""
+        for ax in (self.batch, self.crt):
+            ax.stats, ax.timed = stats, timed and stats is not None
+
     def time_collectives(self, stats: CommStats | None) -> None:
-        """Add the seconds of each collective on either axis to `stats`,
-        synchronising the device around it; None stops the timing."""
-        self.batch.stats = self.crt.stats = stats
+        """`count_collectives` with the seconds: each collective on either
+        axis synchronises the device around it; None stops the timing."""
+        self.count_collectives(stats, timed=True)
 
     def axis(self, name: str) -> Axis:
         if name not in ("batch", "crt"):
@@ -199,6 +236,61 @@ def make_mesh(n_batch: int, n_crt: int, device, ranks=None) -> Mesh | None:
     b, c = divmod(ranks.index(me), n_crt)
     return Mesh(n_batch, n_crt, ranks, me, device,
                 batch_group=batch_groups[c], crt_group=crt_groups[b])
+
+
+def graph_step(mesh: Mesh, step, *args):
+    """`step(*args)` of this rank (CUDA tensors), captured once as CUDA
+    graphs cut at its collectives, for a caller that runs the same step on
+    the same buffers again and again: a rank's host takes longer to launch
+    a step's kernels than its card takes to run them.
+
+    Returns (replay, out): replay() launches the graphs in order and makes
+    each collective of `mesh` between them, on the buffers of the capture,
+    as the step would (counted, timed and ranged as any collective), and
+    writes the result into `out`, the same tensor at every replay (a caller
+    that keeps an output clones it).  The collectives stay out of the
+    graphs: they run as the eager step's do.  The graphs share one memory
+    pool, in the order of their capture, which is thread-local, so that
+    other threads (NCCL's watchdog) may use the device meanwhile.  One
+    call of the step runs first, on the capturing stream."""
+    dev = mesh.device
+    side = torch.cuda.Stream(device=dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        step(*args)
+    torch.cuda.synchronize(dev)
+    graphs, parts = [], []
+
+    def begin():
+        g = torch.cuda.CUDAGraph()
+        g.capture_begin(pool=graphs[0].pool() if graphs else None,
+                        capture_error_mode="thread_local")
+        graphs.append(g)
+
+    def cut(call):
+        graphs[-1].capture_end()
+        parts.extend((graphs[-1].replay, call))
+        begin()
+
+    axes = (mesh.batch, mesh.crt)
+    with torch.cuda.stream(side):
+        try:
+            for ax in axes:
+                ax.cut = cut
+            begin()
+            out = step(*args)
+            graphs[-1].capture_end()
+            parts.append(graphs[-1].replay)
+        finally:
+            for ax in axes:
+                ax.cut = None
+    torch.cuda.current_stream(dev).wait_stream(side)
+
+    def replay():
+        for part in parts:
+            part()
+
+    return replay, out
 
 
 def crt_split(pnum: int, n_crt: int) -> list[tuple[int, int]]:

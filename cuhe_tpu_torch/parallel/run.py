@@ -18,7 +18,8 @@ The backend is the caller's choice and is never switched: "nccl" takes one
 card per rank, "gloo" the CPU and ranks that share a card (each rank takes
 cuda:(rank mod the card count)).  The device defaults to "cuda" and raises
 without a card.  The kernels are built once before the ranks run (by the
-parent of `spawn`, by local rank 0 under torchrun).
+parent of `spawn`, by local rank 0 under torchrun).  A mesh that stays up
+and takes work from one of its ranks is ``session.py``'s `MeshSession`.
 """
 
 from __future__ import annotations
