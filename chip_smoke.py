@@ -9,7 +9,9 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      the SASS instructions per product of the multiply-accumulate's digit
      loop, per prime of the ICRT's loop and per (word, prime) of K5's prime
      loop, K5's and K8's combine's registers, spills and resident blocks
-     per SM (`probes/crt_ops_time.py`), and the wgmma and TMA load
+     per SM (`probes/crt_ops_time.py`), the one-pass inverse's (both
+     variants: of x, and of a product taken at the load), and the wgmma
+     and TMA load
      instructions in the loops of P1's dot kernels (none fails the run),
      and measure the card's integer multiply rates (csrc/calib.cu), which
      the operation side of each kernel's bound uses, and the SM clock under
@@ -53,8 +55,9 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      versions (which the tests hold against the JAX package);
   4. PRINCE level 0 (n = 32768, 25 primes, 40 digits, batch 32): the first
      two ciphertexts against the plain path on the card, then the launch
-     counts of one batch-32 step (the main path: K1 5, K2 2 and K3 1
-     launches and no plain elementwise version called on the card, or the
+     counts of one batch-32 step (the main path: 6 one-pass inverses, 5 of
+     them taking their Z_P product at the load, so K1 0, K2 2 and K3 1
+     launches, and no plain elementwise version called on the card, or the
      run fails), its time and peak memory, and the device
      time of each kernel in it, the port's and every PyTorch kernel left
      (torch.profiler);
@@ -72,7 +75,8 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      CuDHS(5, 2, 1, 61, 20, 8191) keygen (timed by phase), XOR, NOT and
      AND -> relin -> modSwitch decrypting right, a CuDHS from the private
      key string, the launch counts of the encryption (K5 must launch), of
-     one XOR (K6), NOT (K7) and AND gate (every B kernel and K1-K3), none
+     one XOR (K6), NOT (K7) and AND gate (every B kernel, the inverse of a
+     product and K1-K3), none
      with a plain elementwise version on the card, and each gate's time,
      device busy time, PyTorch-kernel share and idle share;
   7. homomorphic PRINCE (cuhe_tpu_torch/models/prince.py): (a) the light
@@ -81,7 +85,8 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      bit-equal (`prince_light`); (b) Prince(seed=7) at the full
      CuDHS(25, 2, 16, 25, 25, 21845): keygen timed by phase, then the
      known-answer circuit through all 12 S-box layers, each layer's time,
-     launches (every B kernel, K1-K4 and K7 in every layer, and no plain
+     launches (every B kernel, the inverse of a product, K1-K4 and K7 in
+     every layer, and no plain
      elementwise version), peak memory and decrypt,
      rounds 0-3 and the final state against the published vectors
      (`prince_full`);
@@ -92,7 +97,8 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      (2, 2) and (1, 3) (2 + 1 + 1 planes: the last rank holds only the
      dropped prime) and (b) the PRINCE level-0 step at batch 32 on (2, 2),
      each gathered output bit-equal to phases 3 and 4 and every B kernel,
-     K1, K2 and K8 launched on every rank (K3 where a rank keeps planes),
+     the inverse of a product, K2 and K8 launched on every rank (K3 where a
+     rank keeps planes),
      no plain elementwise version called on the card, with
      each rank's step time, peak memory, eval-key bytes and time in
      collectives; (c) one n = 32768 NTT across 8, 4 and 2 ranks equal to
@@ -118,10 +124,19 @@ def log(msg: str) -> None:
 
 
 # the elementwise kernels (csrc/pointwise.cu) by launch counter, and their
-# launches in one gate step (the AND, Barrett's two products twice; the
-# combine twice; the switch); K4 runs on PRINCE's path, not the step's
-POINTWISE_STEP_LAUNCHES = {"zp_mul": 5, "barrett_combine": 2,
+# launches in one gate step (the combine twice; the switch; K1 never: the
+# AND and Barrett's two products twice are taken inside the inverses they
+# feed); K4 runs on PRINCE's path, not the step's
+POINTWISE_STEP_LAUNCHES = {"zp_mul": 0, "barrett_combine": 2,
                            "mod_switch": 1}
+# the one-pass inverse's launches in one gate step: of the AND's product and
+# of Barrett's four products, and of the relinearized pair
+INV_STEP_LAUNCHES = {"ntt_inv_cluster_mul": 5, "ntt_inv_cluster": 1}
+# what the DHS AND gate and every PRINCE S-box layer launch at least once:
+# K1 (poly.c_and's product, returned in the NTT domain), the inverse of a
+# product (Barrett's), K2, K3
+GATE_POINTWISE = ("zp_mul", "ntt_inv_cluster_mul", "barrett_combine",
+                  "mod_switch")
 
 
 def profile_step(run, step_ms: float, card: str, label: str,
@@ -360,6 +375,9 @@ def step_kernel_models(batch: int, pn: int, n: int, words: int, c: int,
         # n^-1 folds into a twiddle pass; the mod p is not a multiply
         "ntt_inv_cluster": (batch * pn * n * 12,
                             {"mul64": batch * pn * prods}),
+        # the same of a product by a [pn, n] table (Barrett's), taken at
+        # the load: the table's pair read once, one more product a word
+        "ntt_inv_cluster_mul": inv_mul_model(batch * pn, pn, n),
         # per coefficient and prime: y = x * b_i, then y times each
         # nonzero word of M/p_i
         "icrt": (batch * (pn + words) * (n // 2) * 4,
@@ -369,6 +387,17 @@ def step_kernel_models(batch: int, pn: int, n: int, words: int, c: int,
                            {"mul64": c * batch * prods}),
         "relin_mulacc": mulacc_model(batch, pn, n, c, False),
     }
+
+
+def inv_mul_model(count: int, y_count: int, n: int) -> tuple:
+    """(bytes, multiplies) of `ntt_kernels.inv_linear_mul` over `count`
+    transforms of n: x's pair in and the residues out, as the inverse
+    (`step_kernel_models`), y's `y_count` transforms (broadcast) read once,
+    the inverse's products and one for the Z_P product a word."""
+    from cuhe_tpu_torch.probes.timing import ntt_products
+
+    return (count * n * 12 + y_count * n * 8,
+            {"mul64": count * (ntt_products(n) + n)})
 
 
 def zp_mul_model(count: int, b_count: int) -> tuple:
@@ -1369,9 +1398,9 @@ def parallel_phase(dev, card, rates, rand_u32, rand_pair, entry_out,
         f"{time.perf_counter() - t1:.1f} s")
     # every rank of (a) and (b) has n_crt > 1: each runs K8 around the ICRT's
     # all-reduce
-    b_kernels = ("ntt_fwd", "ntt_inv_cluster", "icrt", "ntt_fwd_digits",
-                 "relin_mulacc", "zp_mul", "barrett_combine", "icrt_split16",
-                 "icrt_combine16")
+    b_kernels = ("ntt_fwd", "ntt_inv_cluster", "ntt_inv_cluster_mul", "icrt",
+                 "ntt_fwd_digits", "relin_mulacc", "barrett_combine",
+                 "icrt_split16", "icrt_combine16")
     k8_launches = {}
     for name, want, n_ranks in (("entry 2x2", entry_out, 4),
                                 ("entry 1x3", entry_out, 3),
@@ -1407,8 +1436,9 @@ def parallel_phase(dev, card, rates, rand_u32, rand_pair, entry_out,
         if not any(r["launches"].get("mod_switch", 0) for r in res):
             raise AssertionError(f"{name}: mod_switch launched on no rank")
         log(f"[parallel] {name}: gathered {got.shape} == the unsharded card "
-            f"output bit for bit, every B kernel, zp_mul, barrett_combine and "
-            f"K8 launched on every rank, no plain version")
+            f"output bit for bit, every B kernel, ntt_inv_cluster_mul, "
+            f"barrett_combine and K8 launched on every rank, no plain "
+            f"version")
     block_launches = {}
     for s in (8, 4, 2):
         for r in ranks[:s]:
@@ -1637,7 +1667,7 @@ def dhs_scheme(dev, card) -> dict:
                                                      "zp_add", "crt_scalar"),
              "xor": ("zp_add",), "not": ("crt_scalar",),
              "and": ("ntt_fwd", "ntt_inv_cluster", "icrt", "ntt_fwd_digits",
-                     "relin_mulacc", *POINTWISE_STEP_LAUNCHES)}
+                     "relin_mulacc", *GATE_POINTWISE)}
     for name, (launches, plain) in path.items():
         log(f"[dhs] launches in simple_dhs {name}: {launches}")
         if plain:
@@ -1826,7 +1856,7 @@ def prince_full(dev, card) -> dict:
         if want is not None and bits != want:
             raise AssertionError(f"PRINCE round {rd}: {bits} != {want}")
         for name in ("ntt_fwd", "ntt_inv_cluster", "icrt", "ntt_fwd_digits",
-                     "relin_mulacc", *POINTWISE_STEP_LAUNCHES, "crt_add",
+                     "relin_mulacc", *GATE_POINTWISE, "crt_add",
                      "crt_scalar"):
             if launches.get(name, 0) < 1:
                 raise AssertionError(f"PRINCE layer {len(rows) + 1}: {name} "
@@ -1879,6 +1909,7 @@ def main() -> int:
     from cuhe_tpu_torch import hostmath as hm
     from cuhe_tpu_torch.ops import _cuda, crt, modp
     from cuhe_tpu_torch.ops import ntt_kernels as nk
+    from cuhe_tpu_torch.ops import pointwise as pw
     from cuhe_tpu_torch.ops.relin import digit_chunk
     from cuhe_tpu_torch.params import make_params
     from cuhe_tpu_torch.probes import ablate
@@ -1927,6 +1958,13 @@ def main() -> int:
     # P1's dot kernels: wgmma (HGMMA / IGMMA) in the consumers' loop and TMA
     # loads (UTMALDG) in the producer's; raises if either is missing
     log(f"[sass] P1 dot kernels' loops: {probe_calib.dot_sass_counts(sass)}")
+    # the one-pass inverse's instantiations, of x and of a product taken at
+    # the load: registers, stack and local bytes (spills) per thread
+    usage = crt_ops_time.resource_usage(so, _cuda._nvcc())
+    for fn_name, u in sorted(usage.items()):
+        if "7cluster8inv_cols" in fn_name:
+            log(f"[sass] {fn_name}: {u['reg']} registers, stack {u['stack']} "
+                f"B, local {u['local']} B, shared {u['shared']} B")
     del sass
     clock = probe_calib.sample_sm_clock(dev)
     rates = probe_calib.mul_rates(dev)
@@ -2003,6 +2041,20 @@ def main() -> int:
         compare("ntt_inv_cluster", f"n={n} x8 edge values",
                 lambda: nk.inv_linear(xp, n, modp.to_u32(pr_)),
                 lambda: nk.inv_linear_plain(xp, n, modp.to_u32(pr_)))
+        # the inverse of a product at the same lengths: full-shaped, and by
+        # a [2, n] table over 4 x 2 transforms, on edge words
+        yp = edge_pair(torch.Size((8, n)))
+        xp2, yp2 = (tuple(v.view(4, 2, n) for v in t) for t in (xp, yp))
+        p2 = modp.to_u32(pr_).view(4, 2)
+        for what, y in (("full-shaped", yp2), ("by [2, n]",
+                                               tuple(v[1] for v in yp2))):
+            compare("ntt_inv_cluster_mul", f"n={n} 4 x 2 edge values, {what}",
+                    lambda: nk.inv_linear_mul(xp2, y, n, p2),
+                    lambda: nk.inv_linear_mul_plain(xp2, y, n, p2))
+        occ = [ablate.blocks_per_sm(k, n, dev)
+               for k in ("inv_cluster", "inv_cluster_mul")]
+        log(f"[kernel] n={n}: one-pass inverse {occ[0]}, of a product "
+            f"{occ[1]} resident blocks per SM")
         raw = edge_u32(torch.Size((2, 3, n // 2)))
         compare("ntt_fwd_digits", f"n={n} 4 digits x2 edge values",
                 lambda: nk.ntt_fwd_digits(raw, n, w=16, j0=1, c=4),
@@ -2075,6 +2127,7 @@ def main() -> int:
                           device=dev, dtype=torch.int64), primes[:, None]))
         raw = rand_u32((batch, words, n // 2))
         ek = rand_pair((knum, pn, n))
+        tab = rand_pair((pn, n))  # a Barrett table, broadcast
         # the step's digit chunk (all digits at both configurations)
         dig = nk.ntt_fwd_digits(raw, n, w=w, j0=0, c=c)
         cases = {
@@ -2082,6 +2135,9 @@ def main() -> int:
                         lambda: nk.fwd_linear_plain(x, n)),
             "ntt_inv_cluster": (lambda: nk.inv_linear(xp, n, p_u32),
                                 lambda: nk.inv_linear_plain(xp, n, p_u32)),
+            "ntt_inv_cluster_mul": (
+                lambda: nk.inv_linear_mul(xp, tab, n, p_u32),
+                lambda: nk.inv_linear_mul_plain(xp, tab, n, p_u32)),
             "icrt": (lambda: crt.icrt_to_raw(crt_in, p_u32, bi_t, mi_words,
                                              m_words),
                      lambda: crt.icrt_to_raw_plain(crt_in, p_u32, bi_t,
@@ -2169,6 +2225,9 @@ def main() -> int:
                                 for q in ("cols", "rows")},
             "ntt_inv_cluster": lambda: {
                 "inv_cluster": ablate.blocks_per_sm("inv_cluster", n, dev)},
+            "ntt_inv_cluster_mul": lambda: {
+                "inv_cluster_mul": ablate.blocks_per_sm("inv_cluster_mul", n,
+                                                        dev)},
             "ntt_fwd_digits": lambda: {q: ablate.blocks_per_sm(q, n, dev)
                                        for q in ("digits", "rows")},
             "icrt": lambda: crt.icrt_blocks_per_sm(pn, words, dev),
@@ -2186,6 +2245,22 @@ def main() -> int:
             log(f"[time] {name} {tag}: kernel {ms:.4f} ms, plain "
                 f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}), "
                 f"blocks/SM {occupancy[name]()} [{card}]")
+        # the inverse of a product against K1 then the inverse, both on
+        # the card: by the table and full-shaped (the AND), on random and
+        # on edge words, with the time of each way
+        for what, y in ((f"by [{pn}, {n}]", tab),
+                        ("full-shaped", rand_pair((batch, pn, n))),
+                        ("edge words, full-shaped", edge_pair(xp[0].shape))):
+            xe = edge_pair(xp[0].shape) if what.startswith("edge") else xp
+            fused = (lambda: nk.inv_linear_mul(xe, y, n, p_u32))
+            unfused = (lambda: nk.inv_linear(pw.ntt_mul(xe, y), n, p_u32))
+            compare("ntt_inv_cluster_mul", f"{tag} {what}, against zp_mul "
+                    "then ntt_inv_cluster", fused, unfused)
+            log(f"[time] ntt_inv_cluster_mul {tag} {what}: kernel "
+                f"{cuda_ms(fused, 20):.4f} ms, zp_mul then ntt_inv_cluster "
+                f"{cuda_ms(unfused, 20):.4f} ms [{card}]")
+            del y, xe
+        del tab
         # the later chunk's launch; and all the digits in launches of 8,
         # as the step ran them with a 64 MiB digit chunk, against one
         # launch over all of them
@@ -2260,7 +2335,8 @@ def main() -> int:
     torch.cuda.synchronize()
     launches = dict(_cuda.LAUNCHES)
     log(f"[prince] launches in one batch-32 step: {launches}")
-    for name, want_n in POINTWISE_STEP_LAUNCHES.items():
+    for name, want_n in {**POINTWISE_STEP_LAUNCHES,
+                         **INV_STEP_LAUNCHES}.items():
         if launches.get(name, 0) != want_n:
             raise AssertionError(f"prince step: {name} launched "
                                  f"{launches.get(name, 0)} times, expected "
@@ -2311,6 +2387,8 @@ def main() -> int:
                            "cuhe_tpu/ops/ntt_kernels.py:330"),
                "ntt_inv_cluster": ("cuhe_tpu_torch/csrc/ntt.cu",
                                    "cuhe_tpu/ops/ntt_kernels.py:1014"),
+               "ntt_inv_cluster_mul": ("cuhe_tpu_torch/csrc/ntt.cu",
+                                       "cuhe_tpu/ops/ntt_kernels.py:1014"),
                "icrt": ("cuhe_tpu_torch/csrc/icrt.cu",
                         "cuhe_tpu/ops/crt.py:113"),
                "ntt_fwd_digits": ("cuhe_tpu_torch/csrc/ntt.cu",
@@ -2327,11 +2405,12 @@ def main() -> int:
                         "max_abs_err": 0, "ms": r["ms"],
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"], "library_ms": None})
-    # the elementwise kernels: launches in phase 4's step (K1-K3), in
-    # phase 7's 12 S-box layers (K4, K7), in phase 6's encryption (K5) and
-    # XOR gate (K6), and on the (2, 2) ranks of phase 8 (b)'s step (K8)
+    # the elementwise kernels: launches in phase 4's step (K2, K3), in
+    # phase 7's 12 S-box layers (K1, whose products the step takes inside
+    # its inverses; K4, K7), in phase 6's encryption (K5) and XOR gate (K6),
+    # and on the (2, 2) ranks of phase 8 (b)'s step (K8)
     path_launches = {k: launches.get(k, 0) for k in POINTWISE_STEP_LAUNCHES}
-    for k in ("crt_add", "crt_scalar"):
+    for k in ("zp_mul", "crt_add", "crt_scalar"):
         path_launches[k] = prince_launches.get(k, 0)
     path_launches.update(dhs_launches)
     path_launches.update(k8_launches)

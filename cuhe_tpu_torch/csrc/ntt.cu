@@ -74,7 +74,11 @@
 //    set the rest.  So K is the smallest power of two up to 8 whose blocks
 //    fit four to an SM, what the registers hold at 64 a thread
 //    (ops/ntt_kernels.py::inv_cluster): 4 at n = 16384 and 8 at 32768, 32
-//    KiB of words a block; 8 at 65536, three blocks of 64 KiB.  The two
+//    KiB of words a block; 8 at 65536, three blocks of 64 KiB.  Its MUL
+//    variant takes the Z_P product that feeds an inverse (the gate's AND,
+//    Barrett's two table products) at its load: two more planes read and
+//    one gl_mul a coefficient, where pointwise.cu's K1 would write the
+//    product through device memory for this kernel to read back.  The two
 //    passes' inverse kernels (ntt_rows<true>, inv_cols) stay as P3's stop
 //    points of that design (probes/ablate.py).
 // The tensor cores are not used: a 64-bit product is 64 int8 products, so a
@@ -515,7 +519,10 @@ ntt_rows(const uint32_t* in_lo, const uint32_t* in_hi, uint32_t* out_lo,
 //  load:      the rows from the lo and hi planes with 16-byte loads;
 //             element j = a2 + M2 jb (M2 = n2/16) goes to position
 //             jb + 16 a2 of its row, so that each stage below reads and
-//             writes the same positions;
+//             writes the same positions; with MUL, the same 16 bytes of a
+//             second operand's planes too, and the product mod P is stored
+//             (the Z_P product that feeds the inverse, pointwise.cu's K1,
+//             taken at the load);
 //  rows 1:    task (a2, 32 rows): positions 16 a2 .. 16 a2 + 15, the
 //             length-16 DFT and the inner twiddles (table_twiddle), back in
 //             place;
@@ -534,6 +541,20 @@ ntt_rows(const uint32_t* in_lo, const uint32_t* in_hi, uint32_t* out_lo,
 // A warp's 32 lanes are 32 rows (rows 1, 2; the odd row length puts them in
 // distinct banks) or 32 neighbouring columns (columns 1, 2: 128-byte stores).
 // ---------------------------------------------------------------------------
+
+// The second operand of the fused inverse (MUL): u32 lo and hi planes of
+// `count` transforms of n words, mat-linear; transform tr of x takes y's
+// transform tr % count (y full-shaped, or a [pnum, n] table broadcast over
+// x's leading dimensions).  Without MUL it is empty, and, as the kernel's
+// last parameter, moves none of the others.
+template <bool MUL>
+struct MulOperand {
+  const uint32_t* lo;
+  const uint32_t* hi;
+  uint32_t count;
+};
+template <>
+struct MulOperand<false> {};
 
 namespace cluster {
 
@@ -573,15 +594,16 @@ __device__ __forceinline__ uint64_t table_twiddle(uint64_t x, int a, int kb,
 }
 
 // x_lo, x_hi: u32 [count, n] mat-linear; p: u32 [count] -> out: u32
-// [count, n] natural order, mod p; grid: count * K blocks in clusters of K,
-// BLOCKS of them resident on an SM (the registers' bound is set to match).
-// Each loop over a stage's tasks runs one task at a time (unroll 1):
-// unrolled, it held more registers than four blocks an SM leave a thread.
-template <int LOGN1, int LOGN2, int LOGK, int BLOCKS>
+// [count, n] natural order, mod p; with MUL, the inverse of x * y mod P
+// instead of x's.  grid: count * K blocks in clusters of K, BLOCKS of them
+// resident on an SM (the registers' bound is set to match).  Each loop over
+// a stage's tasks runs one task at a time (unroll 1): unrolled, it held
+// more registers than four blocks an SM leave a thread.
+template <bool MUL, int LOGN1, int LOGN2, int LOGK, int BLOCKS>
 __global__ void __launch_bounds__(kThreads, BLOCKS)
 inv_cols(const uint32_t* __restrict__ x_lo, const uint32_t* __restrict__ x_hi,
          uint32_t* __restrict__ out, const uint32_t* __restrict__ p,
-         const uint64_t* __restrict__ pwi) {
+         const uint64_t* __restrict__ pwi, const MulOperand<MUL> y) {
   constexpr int LOGN = LOGN1 + LOGN2, N2 = 1 << LOGN2, K = 1 << LOGK;
   constexpr int LOGM1 = LOGN1 - 4, LOGM2 = LOGN2 - 4;
   constexpr int M1 = 1 << LOGM1, M2 = 1 << LOGM2, MK = M1 / K;
@@ -604,20 +626,29 @@ inv_cols(const uint32_t* __restrict__ x_lo, const uint32_t* __restrict__ x_hi,
   // 16-byte vector w of a row (of N2 / 4) loads row vector (w % 16) G +
   // w / 16, G = M2 / 4, whose elements j = 4 v + q have jb = w % 16 and a2 =
   // 4 (w / 16) + q: a half warp's 16 lanes store 16 distinct jb, in
-  // distinct banks.  Four vectors a plane in flight at a time.
-  constexpr int VECS = ROWS * N2 / 4 / kThreads, BATCH = 4, G = M2 / 4;
+  // distinct banks.  Four vectors a plane in flight at a time, two with
+  // MUL's four planes: the same 128 bytes a thread, in the same registers.
+  constexpr int VECS = ROWS * N2 / 4 / kThreads, BATCH = MUL ? 2 : 4;
+  constexpr int G = M2 / 4;
   static_assert(VECS % BATCH == 0, "whole batches of loads");
+  size_t y_base = 0;
+  if constexpr (MUL) y_base = (size_t)(tr % y.count) << LOGN;
 #pragma unroll
   for (int u0 = 0; u0 < VECS; u0 += BATCH) {
     uint4 lo[BATCH], hi[BATCH];
+    [[maybe_unused]] uint4 ylo[BATCH], yhi[BATCH];
 #pragma unroll
     for (int u = 0; u < BATCH; ++u) {
       const int i = threadIdx.x + (u0 + u) * kThreads;
       const int lr = i >> (LOGN2 - 2), w = i & (N2 / 4 - 1);
-      const size_t off = base + ((size_t)row_k1(lr) << LOGN2) +
+      const size_t off = ((size_t)row_k1(lr) << LOGN2) +
                          4 * ((w & 15) * G + (w >> 4));
-      lo[u] = *reinterpret_cast<const uint4*>(x_lo + off);
-      hi[u] = *reinterpret_cast<const uint4*>(x_hi + off);
+      lo[u] = *reinterpret_cast<const uint4*>(x_lo + (base + off));
+      hi[u] = *reinterpret_cast<const uint4*>(x_hi + (base + off));
+      if constexpr (MUL) {
+        ylo[u] = __ldg(reinterpret_cast<const uint4*>(y.lo + (y_base + off)));
+        yhi[u] = __ldg(reinterpret_cast<const uint4*>(y.hi + (y_base + off)));
+      }
     }
 #pragma unroll
     for (int u = 0; u < BATCH; ++u) {
@@ -627,8 +658,13 @@ inv_cols(const uint32_t* __restrict__ x_lo, const uint32_t* __restrict__ x_hi,
       const uint32_t l[4] = {lo[u].x, lo[u].y, lo[u].z, lo[u].w};
       const uint32_t h[4] = {hi[u].x, hi[u].y, hi[u].z, hi[u].w};
 #pragma unroll
-      for (int q = 0; q < 4; ++q)
-        s[at + 16 * q] = (uint64_t)l[q] | ((uint64_t)h[q] << 32);
+      for (int q = 0; q < 4; ++q) {
+        uint64_t v = (uint64_t)l[q] | ((uint64_t)h[q] << 32);
+        if constexpr (MUL)
+          v = gl_mul(v, (uint64_t)(&ylo[u].x)[q] |
+                            ((uint64_t)(&yhi[u].x)[q] << 32));
+        s[at + 16 * q] = v;
+      }
     }
   }
   __syncthreads();
@@ -814,21 +850,24 @@ cudaError_t dispatch_cluster(int logn1, int logn2, F f) {
 }
 
 // The one-pass inverse over `count` transforms, in clusters of 2^logk
-// blocks; logk must be the one its factorization is built for.
+// blocks; logk must be the one its factorization is built for.  MUL: of
+// the product with y.
+template <bool MUL>
 cudaError_t launch_inv_cluster(const uint32_t* x_lo, const uint32_t* x_hi,
-                               uint32_t* out, const uint32_t* p,
-                               const uint64_t* pwi, int count, int logn1,
-                               int logn2, int logk, cudaStream_t stream,
-                               int* occ = nullptr) {
+                               MulOperand<MUL> y, uint32_t* out,
+                               const uint32_t* p, const uint64_t* pwi,
+                               int count, int logn1, int logn2, int logk,
+                               cudaStream_t stream, int* occ = nullptr) {
   return dispatch_cluster(logn1, logn2, [&](auto l1, auto l2, auto lk,
                                             auto blocks) {
     constexpr int LOGN1 = decltype(l1)::value, LOGN2 = decltype(l2)::value,
                   LOGK = decltype(lk)::value, BLOCKS = decltype(blocks)::value;
     constexpr int smem = (1 << (LOGN1 - LOGK)) * RowTile<LOGN2>::W * 8;
-    const auto k = &cluster::inv_cols<LOGN1, LOGN2, LOGK, BLOCKS>;
+    const auto k = &cluster::inv_cols<MUL, LOGN1, LOGN2, LOGK, BLOCKS>;
     if (!occ && logk != LOGK) return cudaErrorInvalidValue;
     const cudaError_t attr =
-        allow_smem<&cluster::inv_cols<LOGN1, LOGN2, LOGK, BLOCKS>, smem>();
+        allow_smem<&cluster::inv_cols<MUL, LOGN1, LOGN2, LOGK, BLOCKS>,
+                   smem>();
     if (attr != cudaSuccess) return attr;
     if (occ)
       return cudaOccupancyMaxActiveBlocksPerMultiprocessor(occ, k, kThreads,
@@ -845,7 +884,7 @@ cudaError_t launch_inv_cluster(const uint32_t* x_lo, const uint32_t* x_hi,
     cfg.stream = stream;
     cfg.attrs = dims;
     cfg.numAttrs = 1;
-    return cudaLaunchKernelEx(&cfg, k, x_lo, x_hi, out, p, pwi);
+    return cudaLaunchKernelEx(&cfg, k, x_lo, x_hi, out, p, pwi, y);
   });
 }
 
@@ -904,7 +943,21 @@ int cuhe_ntt_inv_cluster(const uint32_t* x_lo, const uint32_t* x_hi,
                          uint32_t* out, const uint32_t* p, const uint64_t* pwi,
                          int count, int logn1, int logn2, int logk,
                          cudaStream_t stream) {
-  return (int)launch_inv_cluster(x_lo, x_hi, out, p, pwi, count, logn1,
+  return (int)launch_inv_cluster(x_lo, x_hi, MulOperand<false>{}, out, p,
+                                 pwi, count, logn1, logn2, logk, stream);
+}
+
+// The same of x * y mod P, the product taken at the load: y_lo, y_hi: u32
+// [y_count, n] mat-linear, transform t of x times y's t % y_count.
+int cuhe_ntt_inv_cluster_mul(const uint32_t* x_lo, const uint32_t* x_hi,
+                             const uint32_t* y_lo, const uint32_t* y_hi,
+                             uint32_t* out, const uint32_t* p,
+                             const uint64_t* pwi, int count, int y_count,
+                             int logn1, int logn2, int logk,
+                             cudaStream_t stream) {
+  if (y_count < 1) return (int)cudaErrorInvalidValue;
+  const MulOperand<true> y = {y_lo, y_hi, (uint32_t)y_count};
+  return (int)launch_inv_cluster(x_lo, x_hi, y, out, p, pwi, count, logn1,
                                  logn2, logk, stream);
 }
 
@@ -996,7 +1049,7 @@ int cuhe_ntt_inv_cols(const uint64_t* a, uint32_t* out, const uint32_t* p,
 // Resident blocks per SM of the kernel that pass `pass` launches at this
 // shape (0 cols_io, 1 cols_notw, 2 cols, 3 rows, 4 rows_io, 5 inv_rows,
 // 6 inv_nomod, 7 inv_cols, 8 the digit column pass, 9 the one-pass
-// inverse), or minus a CUDA error.
+// inverse, 10 the one-pass inverse of a product), or minus a CUDA error.
 int cuhe_ntt_blocks_per_sm(int pass, int logn1, int logn2, cudaStream_t) {
   int occ = 0;
   const int l1 = logn1, l2 = logn2;
@@ -1034,7 +1087,12 @@ int cuhe_ntt_blocks_per_sm(int pass, int logn1, int logn2, cudaStream_t) {
                                    &occ);
       break;
     case 9:
-      e = launch_inv_cluster(0, 0, 0, 0, 0, 0, l1, l2, 0, 0, &occ);
+      e = launch_inv_cluster(nullptr, nullptr, MulOperand<false>{}, nullptr,
+                             nullptr, nullptr, 0, l1, l2, 0, 0, &occ);
+      break;
+    case 10:
+      e = launch_inv_cluster(nullptr, nullptr, MulOperand<true>{}, nullptr,
+                             nullptr, nullptr, 0, l1, l2, 0, 0, &occ);
       break;
   }
   return e == cudaSuccess ? occ : -(int)e;

@@ -39,6 +39,8 @@ _SIGNATURES = {
     "cuhe_ntt_fwd": "pppp" + "iii",
     "cuhe_ntt_fwd_digits": "pppp" + "iiiiiii",
     "cuhe_ntt_inv_cluster": "ppppp" + "iiii",
+    # the same of a Z_P product, taken at the load
+    "cuhe_ntt_inv_cluster_mul": "ppppppp" + "iiiii",
     # the forward column pass on a column block of a transform split across
     # devices
     "cuhe_ntt_fwd_cols_block": "pppp" + "iiiii",

@@ -251,6 +251,21 @@ def inv_linear_plain(x_pair, n: int, p: torch.Tensor) -> torch.Tensor:
     return modp.to_u32(modp.mod_p64(y, p_b)).reshape(lead + (n,))
 
 
+def _inv_args(x_pair, n: int, p: torch.Tensor):
+    """The checks of the one-pass inverse's front ends on x and p, and the
+    arguments they share: (out, p broadcast to x's leading dims, count)."""
+    check_root_shift(n, True)
+    lo, hi = x_pair
+    lead = tuple(lo.shape[:-1])
+    # the kernel loads 16 bytes at a time
+    _cuda.check(lo, "x_lo", torch.uint32, lead + (n,), align=16)
+    _cuda.check(hi, "x_hi", torch.uint32, lead + (n,), lo.device, align=16)
+    _cuda.check(p, "p", torch.uint32, device=lo.device)
+    p_b = _u32_contiguous(torch.broadcast_to(p, lead))
+    out = torch.empty(lead + (n,), dtype=torch.uint32, device=lo.device)
+    return out, p_b, prod(lead)
+
+
 def inv_linear(x_pair, n: int, p: torch.Tensor) -> torch.Tensor:
     """Inverse NTT of a mat-linear uint32 pair [.., n], times n^-1, each
     transform reduced mod its prime: p is uint32 broadcastable against the
@@ -258,21 +273,60 @@ def inv_linear(x_pair, n: int, p: torch.Tensor) -> torch.Tensor:
     in natural coefficient order."""
     if _is_cpu(x_pair[0]):
         return inv_linear_plain(x_pair, n, p)
-    check_root_shift(n, True)
     lo, hi = x_pair
     n1, n2 = ntt.factors(n)
-    lead = tuple(lo.shape[:-1])
-    # the kernel loads 16 bytes at a time
-    _cuda.check(lo, "x_lo", torch.uint32, lead + (n,), align=16)
-    _cuda.check(hi, "x_hi", torch.uint32, lead + (n,), lo.device, align=16)
-    _cuda.check(p, "p", torch.uint32, device=lo.device)
-    p_b = _u32_contiguous(torch.broadcast_to(p, lead))
-    count = prod(lead)
-    out = torch.empty(lead + (n,), dtype=torch.uint32, device=lo.device)
+    out, p_b, count = _inv_args(x_pair, n, p)
     if count:
         _cuda.launch("ntt_inv_cluster", "cuhe_ntt_inv_cluster", lo.device, lo,
                      hi, out, p_b, _device_powers(n, True, str(lo.device)),
                      count, _log2(n1), _log2(n2), _log2(inv_cluster(n)))
+    return out
+
+
+def check_suffix_pair(name: str, x, y) -> None:
+    """Raise unless the uint32 pair y has x's shape or a suffix of it (y
+    broadcast over x's leading dimensions: a [pnum, n] table, a
+    plaintext's [n]) and each pair's two words match."""
+    xs, ys = x[0].shape, y[0].shape
+    if (x[1].shape != xs or y[1].shape != ys or len(ys) > len(xs)
+            or xs[len(xs) - len(ys):] != ys):
+        raise ValueError(f"{name}: x {tuple(xs)}, y {tuple(ys)}: y must "
+                         "end x's shape, and a pair's words match")
+
+
+def inv_linear_mul_plain(x_pair, y_pair, n: int,
+                         p: torch.Tensor) -> torch.Tensor:
+    """Plain version of `inv_linear_mul`: the Z_P product (ops/modp.py's
+    int64 word pairs), then `inv_linear_plain`."""
+    return inv_linear_plain(modp.mul_modp(x_pair, y_pair), n, p)
+
+
+def inv_linear_mul(x_pair, y_pair, n: int, p: torch.Tensor) -> torch.Tensor:
+    """`inv_linear` of x * y mod P, for uint32 pairs of values < 2^64: y
+    has x's shape [.., n], or a suffix of it (a [pnum, n] table broadcast
+    over x's leading dimensions).  On the card: one launch of the one-pass
+    inverse, which takes the product at its load (the step's AND and
+    Barrett's two table products, with no product written between them);
+    a strided view of an operand is copied here, explicitly, as
+    `pointwise.ntt_mul` copies it."""
+    check_suffix_pair("inv_linear_mul", x_pair, y_pair)
+    if x_pair[0].shape[-1:] != (n,) or y_pair[0].shape[-1:] != (n,):
+        raise ValueError(f"inv_linear_mul: x {tuple(x_pair[0].shape)}, y "
+                         f"{tuple(y_pair[0].shape)}: both end in n = {n}")
+    if _is_cpu(x_pair[0]):
+        return inv_linear_mul_plain(x_pair, y_pair, n, p)
+    lo, hi, y_lo, y_hi = (v if v.is_contiguous() or v.dtype != torch.uint32
+                          else _u32_contiguous(v) for v in (*x_pair, *y_pair))
+    n1, n2 = ntt.factors(n)
+    out, p_b, count = _inv_args((lo, hi), n, p)
+    _cuda.check(y_lo, "y_lo", torch.uint32, device=lo.device, align=16)
+    _cuda.check(y_hi, "y_hi", torch.uint32, y_lo.shape, lo.device, align=16)
+    if count:
+        _cuda.launch("ntt_inv_cluster_mul", "cuhe_ntt_inv_cluster_mul",
+                     lo.device, lo, hi, y_lo, y_hi, out, p_b,
+                     _device_powers(n, True, str(lo.device)), count,
+                     y_lo.numel() // n, _log2(n1), _log2(n2),
+                     _log2(inv_cluster(n)))
     return out
 
 

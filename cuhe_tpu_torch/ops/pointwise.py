@@ -75,11 +75,7 @@ def _zp_pair_op(name: str, counter: str, fn: str, plain, x, y):
     """The front end of K1 and K6: y has x's shape, or a suffix of it
     (broadcast over x's leading dimensions: a [pnum, n] table, a
     plaintext's [n]); both devices hold y to that shape."""
-    xs, ys = x[0].shape, y[0].shape
-    if (x[1].shape != xs or y[1].shape != ys or len(ys) > len(xs)
-            or xs[len(xs) - len(ys):] != ys):
-        raise ValueError(f"{name}: x {tuple(xs)}, y {tuple(ys)}: y must "
-                         "end x's shape, and a pair's words match")
+    nk.check_suffix_pair(name, x, y)
     if nk._is_cpu(x[0]):
         return plain(x, y)
     dev = x[0].device

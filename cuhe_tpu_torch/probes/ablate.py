@@ -457,9 +457,10 @@ def kernel_products(passes, n: int) -> int:
 
 # id of each pass's kernel for `blocks_per_sm` (csrc/ntt.cu,
 # cuhe_ntt_blocks_per_sm); "digits" is the digit NTT's column pass (B6),
-# "inv_cluster" the one-pass inverse (B2)
+# "inv_cluster" the one-pass inverse (B2), "inv_cluster_mul" its variant
+# that takes a Z_P product at the load
 _KERNEL_IDS = {**{name: i for i, name in enumerate(PASSES)}, "digits": 8,
-               "inv_cluster": 9}
+               "inv_cluster": 9, "inv_cluster_mul": 10}
 
 
 def blocks_per_sm(name: str, n: int, device) -> int:

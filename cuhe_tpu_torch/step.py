@@ -6,10 +6,10 @@ path of every homomorphic circuit: DHS AND gates, the PRINCE S-box layers).
 It takes batched NTT-domain ciphertext pairs ``[batch, pnum, n]`` (uint32,
 mat-linear) and runs, in order:
 
-  1. AND: pointwise mul mod P;                       (kernel K1)
-  2. inverse NTT with the mod-p epilogue;             (kernel)
-  3. polynomial Barrett: 2 forward, 2 inverse NTTs,   (kernels)
-     2 products and the combine;                      (K1, K2)
+  1. AND: pointwise mul mod P, and                   (one kernel:
+  2. inverse NTT with the mod-p epilogue;              B2 of the product)
+  3. polynomial Barrett: 2 forward, 2 inverse NTTs    (kernels: the
+     of 2 products, and the combine;                   products in B2, K2)
   4. ICRT to RAW words;                              (kernel)
   5. relinearization: digit NTTs + eval-key mul-acc; (kernels)
   6. inverse NTT and Barrett again;                  (kernels)
@@ -17,9 +17,11 @@ mat-linear) and runs, in order:
 
 and returns CRT residues ``[batch, pnum-1, n/2]`` at level lvl+1.  The
 tables are module buffers, so ``step(a_lo, a_hi, b_lo, b_hi)`` is the whole
-call.  ``plain=True`` runs the plain PyTorch versions of all the kernels
-on the module's device, and no front end: the reference the kernels are
-held against on the card.
+call.  Each product of two NTT-domain operands is taken inside the
+inverse NTT that it feeds (``ntt_kernels.inv_linear_mul``), so none is
+written to device memory.  ``plain=True`` runs the plain PyTorch versions
+of all the kernels on the module's device, and no front end: the
+reference the kernels are held against on the card.
 The ICRT (`_c2r`) and the modulus switch (`_mod_switch`) are the two steps
 that look across prime planes; ``parallel/mesh.py::ShardedGateStep``
 replaces just those two to run the step on a crt-sharded slice of the
@@ -66,25 +68,30 @@ class GateStep(nn.Module):
             self.register_buffer(name, v.contiguous(), persistent=False)
         if plain:
             self._fwd, self._inv = nk.fwd_linear_plain, nk.inv_linear_plain
+            self._inv_mul = nk.inv_linear_mul_plain
             self._icrt = crt.icrt_to_raw_plain
             self._digits_mulacc = nk.relin_digits_mulacc_plain
-            self._mul, self._combine = (pw.ntt_mul_plain,
-                                        barrett.barrett_combine_plain)
+            self._combine = barrett.barrett_combine_plain
             self._switch = pw.mod_switch_plain
         else:
             self._fwd, self._inv = nk.fwd_linear, nk.inv_linear
+            self._inv_mul = nk.inv_linear_mul
             self._icrt = crt.icrt_to_raw
             self._digits_mulacc = nk.relin_digits_mulacc
-            self._mul, self._combine = pw.ntt_mul, barrett.barrett_combine
+            self._combine = barrett.barrett_combine
             self._switch = pw.mod_switch
 
-    def _n2c_barrett(self, pair) -> torch.Tensor:
-        full = self._inv(pair, self.n, self.primes)
+    def _n2c_barrett(self, pair, other=None) -> torch.Tensor:
+        """CRT residues of the NTT-domain pair, or of its product with
+        `other`, reduced mod m(x)."""
+        if other is None:
+            full = self._inv(pair, self.n, self.primes)
+        else:
+            full = self._inv_mul(pair, other, self.n, self.primes)
         return barrett.barrett_reduce(
             full, mod_len=self.mod_len, n=self.n, u_ntt=(self.u_lo, self.u_hi),
             m_ntt=(self.m_lo, self.m_hi), m_crt=self.m_crt, primes=self.primes,
-            fwd=self._fwd, inv=self._inv, mul=self._mul,
-            combine=self._combine)
+            fwd=self._fwd, inv_mul=self._inv_mul, combine=self._combine)
 
     def _c2r(self, red) -> torch.Tensor:
         return self._icrt(red, self.primes, self.bi, self.mi_words,
@@ -94,8 +101,7 @@ class GateStep(nn.Module):
         return self._switch(red, self.primes, self.invp_last, self.mod_msg)
 
     def forward(self, a_lo, a_hi, b_lo, b_hi) -> torch.Tensor:
-        prod = self._mul((a_lo, a_hi), (b_lo, b_hi))
-        raw = self._c2r(self._n2c_barrett(prod))
+        raw = self._c2r(self._n2c_barrett((a_lo, a_hi), (b_lo, b_hi)))
         r = relinearize(raw, self.ek_lo, self.ek_hi, w=self.w, knum=self.knum,
                         pnum=self.pn, n=self.n,
                         digits_mulacc=self._digits_mulacc)

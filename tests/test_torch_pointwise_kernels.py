@@ -403,6 +403,14 @@ PLANE = B * PNUM * N * 4
     # 25 primes and 24 inverses
     ("mod switch", lambda: chip_smoke.mod_switch_model(B, PNUM - 1, N // 2),
      B * (2 * PNUM - 1) * (N // 2) * 4 + (2 * PNUM - 1) * 4, 102.8),
+    # the inverse of the AND's product: a's and b's pairs in, one plane of
+    # residues out
+    ("inverse of the and", lambda: chip_smoke.inv_mul_model(
+        B * PNUM, B * PNUM, N), 5 * PLANE, 524.3),
+    # the inverse of a Barrett product: a's pair in, the [25, n] table pair
+    # once, one plane of residues out
+    ("inverse of a barrett product", lambda: chip_smoke.inv_mul_model(
+        B * PNUM, PNUM, N), 3 * PLANE + PNUM * N * 8, 321.1),
 ], ids=lambda c: c[0])
 def test_pointwise_byte_bounds_by_hand(case):
     _, model, want, mb = case
