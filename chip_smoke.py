@@ -289,6 +289,7 @@ def prince_shapes(dev, card, compare, rand_u32, rand_pair) -> None:
     import torch
     from cuhe_tpu_torch import entry as port_entry
     from cuhe_tpu_torch import hostmath as hm
+    from cuhe_tpu_torch.context import KERNELS, PLAIN
     from cuhe_tpu_torch.ops import crt, modp
     from cuhe_tpu_torch.ops import ntt_kernels as nk
     from cuhe_tpu_torch.ops.relin import digit_chunk, relinearize
@@ -321,9 +322,10 @@ def prince_shapes(dev, card, compare, rand_u32, rand_pair) -> None:
                                               acc=prev))
         del dig
     compare("relinearize", tag,
-            lambda: relinearize(raw, *ek, w=w, knum=knum, pnum=pn, n=n),
             lambda: relinearize(raw, *ek, w=w, knum=knum, pnum=pn, n=n,
-                                digits_mulacc=nk.relin_digits_mulacc_plain))
+                                ops=KERNELS),
+            lambda: relinearize(raw, *ek, w=w, knum=knum, pnum=pn, n=n,
+                                ops=PLAIN))
     del raw, ek, acc
     torch.cuda.empty_cache()
     primes = [int(v) for v in pr.crt_primes]

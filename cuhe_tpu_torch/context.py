@@ -12,8 +12,9 @@ The conversions of the reference's CuPolynomial state machine
 (CuHE.cu:317-464; ``cuhe_tpu/context.py:150-291``) are methods taking the
 level and the data: `r2c`, `c2r` (the ICRT kernel), `c2n` (the forward
 NTT), `n2c` (the inverse NTT, then Barrett for a product), `mod_switch`,
-`relin` and `mul_one_many`.  Each level's constants are put on the device
-once, at its first use.  They take a leading batch axis or none.
+`relin` and `mul_one_many`.  They take a leading batch axis or none.  A
+level's conversions are written once, as methods of its `LevelTables`
+(put on the device at the level's first use), which ``step.py`` calls too.
 
 `Context.from_numpy_state` builds a context from another context's tables
 (for example the JAX package's, converted to numpy) without recomputing them;
@@ -22,7 +23,8 @@ once, at its first use.  They take a leading batch axis or none.
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+import dataclasses
+from collections.abc import Callable
 
 import numpy as np
 import torch
@@ -31,7 +33,7 @@ from . import hostmath as hm
 from .ops import crt, modp
 from .ops import ntt_kernels as nk
 from .ops import pointwise as pw
-from .ops.barrett import barrett_reduce
+from .ops.barrett import barrett_combine, barrett_combine_plain, barrett_reduce
 from .ops.relin import relinearize
 from .params import Params, make_params
 
@@ -116,10 +118,41 @@ def _pair_to(pair, device):
                  for v in pair)
 
 
-@dataclass(frozen=True)
-class LevelTables:
-    """A level's constants on the context's device (uint32)."""
+@dataclasses.dataclass(frozen=True)
+class FrontEnds:
+    """The functions a level's conversions call: the kernels' front ends
+    (`KERNELS`; each runs its plain version for a CPU tensor) or the plain
+    versions themselves (`PLAIN`, the kernels' reference on a card)."""
 
+    fwd: Callable            # forward NTT
+    inv: Callable            # inverse NTT mod each prime
+    inv_mul: Callable        # inverse NTT of a Z_P product
+    combine: Callable        # Barrett's three subtracts (K2)
+    icrt: Callable           # CRT -> RAW (B3)
+    digits_mulacc: Callable  # relinearization's digit NTTs and mul-acc
+    switch: Callable         # modulus switch (K3)
+
+
+KERNELS = FrontEnds(nk.fwd_linear, nk.inv_linear, nk.inv_linear_mul,
+                    barrett_combine, crt.icrt_to_raw, nk.relin_digits_mulacc,
+                    pw.mod_switch)
+PLAIN = FrontEnds(nk.fwd_linear_plain, nk.inv_linear_plain,
+                  nk.inv_linear_mul_plain, barrett_combine_plain,
+                  crt.icrt_to_raw_plain, nk.relin_digits_mulacc_plain,
+                  pw.mod_switch_plain)
+
+
+@dataclasses.dataclass(frozen=True)
+class LevelTables:
+    """A level's constants on the context's device (uint32), and the
+    conversions at the level, through the front ends `ops`.  The eval keys
+    are not among them: `relin` takes the ones it reads."""
+
+    n: int
+    mod_len: int
+    mod_msg: int
+    w: int                  # bits of a relinearization digit
+    knum: int               # eval-key digits at the level
     pn: int                 # CRT primes at the level
     primes: torch.Tensor    # [pn]
     invp_last: torch.Tensor  # [pn - 1]: inv(p_last, p_i)
@@ -129,6 +162,48 @@ class LevelTables:
     u_ntt: tuple            # Barrett u, pair [pn, n]
     m_ntt: tuple            # Barrett m - x^n, pair [pn, n]
     m_crt: torch.Tensor     # [pn, n/2]
+
+    def planes(self, c0: int, c1: int) -> "LevelTables":
+        """The tables of planes c0..c1-1 (a crt rank's), contiguous copies;
+        M and `invp_last` stay whole (the sharded switch cuts its own)."""
+        def cut(v):
+            return nk._u32_contiguous(v[c0:c1])
+
+        return dataclasses.replace(
+            self, pn=c1 - c0, primes=cut(self.primes), bi=cut(self.bi),
+            mi_words=cut(self.mi_words), u_ntt=tuple(map(cut, self.u_ntt)),
+            m_ntt=tuple(map(cut, self.m_ntt)), m_crt=cut(self.m_crt))
+
+    def n2c(self, is_prod: bool, pair, other=None,
+            ops: FrontEnds = KERNELS) -> torch.Tensor:
+        """NTT-domain pair [.., pn, n] -> CRT residues [.., pn, n/2]: the
+        inverse NTT mod each prime, of pair * other mod P where `other` is
+        given (the product taken inside the inverse), then for a product
+        (degree up to 2 mod_len - 2) the polynomial Barrett reduction."""
+        if other is None:
+            full = ops.inv(pair, self.n, self.primes)
+        else:
+            full = ops.inv_mul(pair, other, self.n, self.primes)
+        if not is_prod:
+            return full[..., : self.n // 2].contiguous()
+        return barrett_reduce(full, mod_len=self.mod_len, n=self.n,
+                              u_ntt=self.u_ntt, m_ntt=self.m_ntt,
+                              m_crt=self.m_crt, primes=self.primes, ops=ops)
+
+    def c2r(self, c, ops: FrontEnds = KERNELS) -> torch.Tensor:
+        """CRT residues -> RAW words in [0, M) (the ICRT)."""
+        return ops.icrt(c, self.primes, self.bi, self.mi_words, self.m_words)
+
+    def mod_switch(self, c, ops: FrontEnds = KERNELS) -> torch.Tensor:
+        """CRT residues -> the next level's (the last prime dropped)."""
+        return ops.switch(c, self.primes, self.invp_last, self.mod_msg)
+
+    def relin(self, raw, ek, ops: FrontEnds = KERNELS):
+        """RAW words of a product -> NTT-domain pair [.., pn, n] of the
+        relinearized ciphertext, over the eval-key pair `ek` [num_eval_key,
+        >= pn, n]."""
+        return relinearize(raw, *ek, w=self.w, knum=self.knum, pnum=self.pn,
+                           n=self.n, ops=ops)
 
 
 class Context:
@@ -174,7 +249,8 @@ class Context:
     def level(self, lvl: int) -> LevelTables:
         """The constants of level `lvl`, on the device (made once)."""
         if lvl not in self._levels:
-            pn = self.params.num_crt_prime_lvl(lvl)
+            pr = self.params
+            pn = pr.num_crt_prime_lvl(lvl)
             m_words, mi_words, bi = self._icrt[lvl]
 
             def dev(a):
@@ -182,6 +258,8 @@ class Context:
                     self.device)
 
             self._levels[lvl] = LevelTables(
+                n=self.n, mod_len=self.mod_len, mod_msg=pr.mod_msg,
+                w=pr.log_relin, knum=pr.num_eval_key_lvl(lvl),
                 pn=pn, primes=dev(self.primes_np[:pn]),
                 invp_last=dev(self.invp_np[pn - 1, : pn - 1]), bi=dev(bi),
                 mi_words=dev(mi_words), m_words=dev(m_words),
@@ -196,30 +274,21 @@ class Context:
 
     def c2r(self, lvl: int, c: torch.Tensor) -> torch.Tensor:
         """CRT residues -> RAW words in [0, q_lvl) (the ICRT kernel)."""
-        t = self.level(lvl)
-        return crt.icrt_to_raw(c, t.primes, t.bi, t.mi_words, t.m_words)
+        return self.level(lvl).c2r(c)
 
     def c2n(self, c: torch.Tensor):
         """Coefficients [.., n/2] -> NTT-domain pair [.., n] (the forward
         NTT); the same at every level, and for a plaintext's word plane."""
         return nk.fwd_linear(c, self.n)
 
-    def n2c(self, lvl: int, is_prod: bool, pair) -> torch.Tensor:
-        """NTT-domain pair [.., pn, n] -> CRT residues [.., pn, n/2]: the
-        inverse NTT mod each prime, then for a product (degree up to
-        2 mod_len - 2) the polynomial Barrett reduction mod m(x)."""
-        t = self.level(lvl)
-        full = nk.inv_linear(pair, self.n, t.primes)
-        if not is_prod:
-            return full[..., : self.n // 2].contiguous()
-        return barrett_reduce(full, mod_len=self.mod_len, n=self.n,
-                              u_ntt=t.u_ntt, m_ntt=t.m_ntt, m_crt=t.m_crt,
-                              primes=t.primes)
+    def n2c(self, lvl: int, is_prod: bool, pair, other=None) -> torch.Tensor:
+        """NTT-domain pair [.., pn, n], or its product with `other` -> CRT
+        residues [.., pn, n/2] (`LevelTables.n2c`)."""
+        return self.level(lvl).n2c(is_prod, pair, other)
 
     def mod_switch(self, lvl: int, c: torch.Tensor) -> torch.Tensor:
         """CRT residues at level lvl -> level lvl + 1 (one prime fewer)."""
-        t = self.level(lvl)
-        return pw.mod_switch(c, t.primes, t.invp_last, self.params.mod_msg)
+        return self.level(lvl).mod_switch(c)
 
     def relin(self, lvl: int, raw: torch.Tensor):
         """RAW words of a product -> NTT-domain pair [.., pn, n] of the
@@ -227,10 +296,7 @@ class Context:
         kernels, over the level's eval keys)."""
         if self.ek_ntt is None:
             raise RuntimeError("relinearization keys not initialised")
-        pr = self.params
-        return relinearize(raw, *self.ek_ntt, w=pr.log_relin,
-                           knum=pr.num_eval_key_lvl(lvl),
-                           pnum=self.level(lvl).pn, n=self.n)
+        return self.level(lvl).relin(raw, self.ek_ntt)
 
     def mul_one_many(self, lvl: int, raw_batch: torch.Tensor, a_pair):
         """RAW words [B, words, n/2] of B polynomials times one NTT-domain

@@ -7,13 +7,12 @@ plane and the precomputed
     u = x^(2n-1) div m       (NTT domain, per prime)
     m - x^n                  (NTT domain and CRT domain, per prime)
 
-it computes f mod m(x).  The two forward NTTs go through `fwd`, the two
-products with the inverse NTTs they feed through `inv_mul`, and the three
-subtracts that end it (steps 4-6) through `combine`: by default the kernel
-front ends (``ops/ntt_kernels.py``: `fwd_linear`, `inv_linear_mul`, one
-launch that takes the product at its load; `barrett_combine`), which run
-their plain versions for a CPU tensor; `GateStep(plain=True)` passes the
-plain versions themselves.
+it computes f mod m(x).  The two forward NTTs, the two products with the
+inverse NTTs they feed, and the three subtracts that end it (steps 4-6) go
+through the set of front ends `ops` (``context.py::FrontEnds``): `KERNELS`
+(`fwd_linear`; `inv_linear_mul`, one launch that takes the product at its
+load; `barrett_combine`), which run their plain versions for a CPU tensor,
+or `PLAIN`, the plain versions themselves.
 """
 
 from __future__ import annotations
@@ -93,22 +92,21 @@ def barrett_combine(f, c1, c2, m_crt, primes, *, mod_len: int,
 
 
 def barrett_reduce(f, *, mod_len: int, n: int, u_ntt, m_ntt, m_crt, primes,
-                   fwd=nk.fwd_linear, inv_mul=nk.inv_linear_mul,
-                   combine=barrett_combine) -> torch.Tensor:
+                   ops) -> torch.Tensor:
     """f: uint32 [.., pnum, n] residues of a degree <= 2*mod_len-2 polynomial.
 
     Returns uint32 [.., pnum, n/2] residues of f mod m(x).  u_ntt, m_ntt:
     uint32 pairs [pnum, n], mat-linear; m_crt: uint32 [pnum, n/2]; primes:
-    uint32 [pnum].  inv_mul(x, y, n, primes) is the inverse NTT of x * y
-    mod P.
+    uint32 [pnum]; ops: the front ends it calls (`fwd`, `inv_mul`, the
+    inverse NTT of x * y mod P, and `combine`).
     """
     half = n // 2
     # c1 = intt(u * ntt(f >> (mod_len - 1))); only its coefficients from
     # mod_len on are read below (the JAX package zeroes the others)
-    t1 = fwd(f[..., mod_len - 1: mod_len - 1 + half].contiguous(), n)
-    c1 = inv_mul(t1, u_ntt, n, primes)
+    t1 = ops.fwd(f[..., mod_len - 1: mod_len - 1 + half].contiguous(), n)
+    c1 = ops.inv_mul(t1, u_ntt, n, primes)
 
     # c2 = intt((m - x^n) * ntt(c1 >> mod_len))
     h = c1[..., mod_len: mod_len + half].contiguous()
-    c2 = inv_mul(fwd(h, n), m_ntt, n, primes)
-    return combine(f, c1, c2, m_crt, primes, mod_len=mod_len, n=n)
+    c2 = ops.inv_mul(ops.fwd(h, n), m_ntt, n, primes)
+    return ops.combine(f, c1, c2, m_crt, primes, mod_len=mod_len, n=n)

@@ -55,7 +55,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from ..context import Context
+from ..context import Context, LevelTables
 from ..ops import crt, ntt
 from ..ops import ntt_kernels as nk
 from ..ops import pointwise as pw
@@ -349,18 +349,17 @@ def gather_ciphertext(local: torch.Tensor, mesh: Mesh) -> torch.Tensor:
     return gather_batch(gather_planes(local, mesh.crt, sizes), mesh)
 
 
-def icrt_to_raw_sharded(mesh: Mesh, crt_local, primes, bi, mi_words,
-                        m_words) -> torch.Tensor:
+def icrt_to_raw_sharded(mesh: Mesh, crt_local, t: LevelTables
+                        ) -> torch.Tensor:
     """ICRT over a crt-sharded prime axis.
 
-    crt_local: uint32 [.., k, L], this rank's planes; primes, bi [k] and
-    mi_words [k, words] their constants; m_words [words] the global M.  The
-    ICRT kernel (B3) sums this rank's primes into a value in [0, M), and
-    `crt.icrt_psum_combine` adds the crt ranks' partials mod M with one
-    all-reduce.  Returns RAW uint32 [.., words, L], the same on every rank
-    of the crt axis."""
-    part = crt.icrt_to_raw(crt_local, primes, bi, mi_words, m_words)
-    return crt.icrt_psum_combine(part, m_words, mesh.crt, mesh.crt.size)
+    crt_local: uint32 [.., k, L], this rank's planes; t: their tables
+    (`LevelTables.planes`: M stays the level's).  The ICRT kernel (B3) sums
+    this rank's primes into a value in [0, M), and `crt.icrt_psum_combine`
+    adds the crt ranks' partials mod M with one all-reduce.  Returns RAW
+    uint32 [.., words, L], the same on every rank of the crt axis."""
+    return crt.icrt_psum_combine(t.c2r(crt_local), t.m_words, mesh.crt,
+                                 mesh.crt.size)
 
 
 def _cut(t: torch.Tensor, dim: int, c0: int, c1: int) -> torch.Tensor:
@@ -375,7 +374,7 @@ class ShardedGateStep(GateStep):
     n] with k = c1 - c0 planes of `crt_split(pnum, n_crt)`, and returns the
     level-lvl+1 CRT residues of its B_local ciphertexts, uint32 [B_local,
     pnum-1, n/2], the same on every rank of its crt axis (`gather_batch`
-    gives the whole batch).  The module holds only its planes of the level
+    gives the whole batch).  The step holds only its planes of the level
     tables and of the eval keys ([knum, k, n], cut once here): a caller
     that built `ctx` for this step alone drops ``ctx.ek_ntt`` afterwards,
     so that the rank keeps only its slice of the keys.
@@ -386,46 +385,39 @@ class ShardedGateStep(GateStep):
     prime's plane from the last crt rank, which holds it (a broadcast), and
     all-gathers the kept planes."""
 
-    _PLANE_TABLES = ("primes", "bi", "mi_words", "u_lo", "u_hi", "m_lo",
-                     "m_hi", "m_crt")
-
     def __init__(self, ctx: Context, lvl: int, mesh: Mesh):
         super().__init__(ctx, lvl)
         self.mesh = mesh
-        pn = self.pn
-        split = crt_split(pn, mesh.crt.size)
+        t = self.t
+        split = crt_split(t.pn, mesh.crt.size)
         c0, c1 = split[mesh.crt.index]
         self.planes = (c0, c1)
-        self.p_last = int(ctx.primes_np[pn - 1])
         # each crt rank's planes below the dropped one
-        self.kept = [max(0, min(q1, pn - 1) - q0) for q0, q1 in split]
-        for name in self._PLANE_TABLES:
-            setattr(self, name, _cut(getattr(self, name), 0, c0, c1))
+        self.kept = [max(0, min(q1, t.pn - 1) - q0) for q0, q1 in split]
+        self.t = t.planes(c0, c1)
         self.ek_lo = _cut(self.ek_lo, 1, c0, c1)
         self.ek_hi = _cut(self.ek_hi, 1, c0, c1)
         k = self.kept[mesh.crt.index]
-        self.invp_last = _cut(self.invp_last, 0, c0, c0 + k)
+        self.invp_last = _cut(t.invp_last, 0, c0, c0 + k)
         # the modulus switch's primes: this rank's kept planes', then p_t
-        self.register_buffer("switch_primes", torch.from_numpy(np.array(
-            list(ctx.primes_np[c0:c0 + k]) + [self.p_last],
-            dtype=np.uint32)).to(self.primes.device), persistent=False)
-        self.pn = c1 - c0
+        self.switch_primes = torch.from_numpy(np.array(
+            list(ctx.primes_np[c0:c0 + k]) + [ctx.primes_np[t.pn - 1]],
+            dtype=np.uint32)).to(t.primes.device)
 
     def _c2r(self, red) -> torch.Tensor:
-        return icrt_to_raw_sharded(self.mesh, red, self.primes, self.bi,
-                                   self.mi_words, self.m_words)
+        return icrt_to_raw_sharded(self.mesh, red, self.t)
 
     def _mod_switch(self, red) -> torch.Tensor:
         axis = self.mesh.crt
         owner = axis.size - 1
         if axis.index == owner:
-            dirty = _cut(red, -2, self.pn - 1, self.pn)[..., 0, :]
+            dirty = _cut(red, -2, self.t.pn - 1, self.t.pn)[..., 0, :]
         else:
             dirty = torch.empty(red.shape[:-2] + red.shape[-1:],
                                 dtype=red.dtype, device=red.device)
         axis.broadcast(dirty, owner)
         mine = pw.mod_switch_dropped(red, dirty, self.switch_primes,
-                                     self.invp_last, self.mod_msg)
+                                     self.invp_last, self.t.mod_msg)
         return gather_planes(mine, axis, self.kept)
 
 

@@ -14,6 +14,7 @@ from cuhe_tpu.context import Context as JContext
 from cuhe_tpu.ops import barrett as jbarrett
 from cuhe_tpu.ops import pointwise as jpw
 from cuhe_tpu.params import make_params
+from cuhe_tpu_torch.context import KERNELS
 from cuhe_tpu_torch.ops import barrett, pointwise
 from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
@@ -41,7 +42,8 @@ def test_barrett_reduce_matches_jax(jctx):
         torch.from_numpy(f), mod_len=jctx.mod_len, n=n,
         u_ntt=tuple(map(torch.from_numpy, u)),
         m_ntt=tuple(map(torch.from_numpy, m)),
-        m_crt=torch.from_numpy(jctx.m_crt_np), primes=torch.from_numpy(primes))
+        m_crt=torch.from_numpy(jctx.m_crt_np), primes=torch.from_numpy(primes),
+        ops=KERNELS)
     reduce = jax.jit(functools.partial(
         jbarrett.barrett_reduce, mod_len=jctx.mod_len, n=n, layout="mat"))
     want = reduce(jnp.asarray(f), u_ntt=jctx.u_ntt, m_ntt=jctx.m_ntt,

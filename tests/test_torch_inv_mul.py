@@ -3,11 +3,12 @@ the card runs as one launch of the one-pass inverse taking the product at
 its load, on the CPU: its plain version equals K1's plain version then the
 plain inverse, and the JAX package's `mul_modp` then `inv_linear`, bit for
 bit at 16k, 32k and 64k, with the second operand full-shaped and broadcast
-as a [pnum, n] table, on edge words; `barrett_reduce` with it as `inv_mul`
-equals the JAX package's; `GateStep(plain=True)` equals the step as it was
-composed with K1 apart.  The card's side is tests/test_torch_ntt_card.py
-and chip_smoke.py phase 2."""
+as a [pnum, n] table, on edge words; `barrett_reduce` through either set
+of front ends equals the JAX package's; `GateStep(plain=True)` equals the
+step as it was composed with K1 apart.  The card's side is
+tests/test_torch_ntt_card.py and chip_smoke.py phase 2."""
 
+import dataclasses
 import functools
 
 import jax
@@ -20,6 +21,7 @@ from cuhe_tpu.ops import barrett as jbarrett
 from cuhe_tpu.ops import modp as jmodp
 from cuhe_tpu.ops import ntt_kernels as jnk
 from cuhe_tpu_torch import entry
+from cuhe_tpu_torch.context import KERNELS, PLAIN
 from cuhe_tpu_torch.ops import barrett, modp
 from cuhe_tpu_torch.ops import ntt_kernels as nk
 from cuhe_tpu_torch.ops import pointwise as pw
@@ -100,10 +102,8 @@ def _jax_reduce_fn(mod_len, n):
                                      n=n, layout="mat"))
 
 
-@pytest.mark.parametrize("inv_mul", (nk.inv_linear_mul,
-                                     nk.inv_linear_mul_plain),
-                         ids=("front_end", "plain"))
-def test_barrett_reduce_with_inverse_of_a_product_matches_jax(inv_mul):
+@pytest.mark.parametrize("ops", (KERNELS, PLAIN), ids=("front_end", "plain"))
+def test_barrett_reduce_with_inverse_of_a_product_matches_jax(ops):
     """PRINCE's shape (mod_len = n/2) at n = 16384, random tables and
     residues, plane 0 of ciphertext 0 all p - 1."""
     n, mod_len = 16384, 8192
@@ -117,7 +117,7 @@ def test_barrett_reduce_with_inverse_of_a_product_matches_jax(inv_mul):
     got = barrett.barrett_reduce(
         torch.from_numpy(f), mod_len=mod_len, n=n, u_ntt=_t(u), m_ntt=_t(m),
         m_crt=torch.from_numpy(m_crt), primes=torch.from_numpy(PRIMES),
-        inv_mul=inv_mul)
+        ops=ops)
     mus = np.array([jmodp.barrett_mu(int(q)) for q in PRIMES], np.uint64)
     want = _jax_reduce_fn(mod_len, n)(
         jnp.asarray(f), u_ntt=_j(u), m_ntt=_j(m), m_crt=jnp.asarray(m_crt),
@@ -128,29 +128,24 @@ def test_barrett_reduce_with_inverse_of_a_product_matches_jax(inv_mul):
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
+def _k1_then_inverse(x, y, n, p):
+    return nk.inv_linear_plain(pw.ntt_mul_plain(x, y), n, p)
+
+
 class _StepWithK1(GateStep):
     """The step as it was composed before the products moved into the
-    inverses: K1's plain version, then the plain inverse, and Barrett with
-    each product taken apart."""
+    inverses: the AND and Barrett's two products each by K1's plain
+    version, then the plain inverse."""
 
-    def _n2c_barrett(self, pair, other=None):
-        if other is not None:
-            pair = pw.ntt_mul_plain(pair, other)
-        full = nk.inv_linear_plain(pair, self.n, self.primes)
-
-        def inv_mul(x, y, n, p):
-            return nk.inv_linear_plain(pw.ntt_mul_plain(x, y), n, p)
-
-        return barrett.barrett_reduce(
-            full, mod_len=self.mod_len, n=self.n, u_ntt=(self.u_lo, self.u_hi),
-            m_ntt=(self.m_lo, self.m_hi), m_crt=self.m_crt, primes=self.primes,
-            fwd=self._fwd, inv_mul=inv_mul, combine=self._combine)
+    def __init__(self, ctx, lvl):
+        super().__init__(ctx, lvl, plain=True)
+        self.ops = dataclasses.replace(PLAIN, inv_mul=_k1_then_inverse)
 
 
 def test_plain_gate_step_output_is_unchanged():
     step, args = entry.entry(device="cpu")
     args = tuple(a[:1].contiguous() for a in args)
     got = GateStep(step.ctx, 0, plain=True)(*args)
-    want = _StepWithK1(step.ctx, 0, plain=True)(*args)
+    want = _StepWithK1(step.ctx, 0)(*args)
     assert tuple(got.shape) == (1, 3, 8192)
     np.testing.assert_array_equal(got.numpy(), want.numpy())

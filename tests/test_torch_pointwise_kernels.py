@@ -30,6 +30,7 @@ from cuhe_tpu.ops import modp as jmodp
 from cuhe_tpu.ops import pointwise as jpw
 from cuhe_tpu.params import make_params as jmake_params
 from cuhe_tpu_torch import entry
+from cuhe_tpu_torch.context import KERNELS
 from cuhe_tpu_torch.ops import barrett, modp
 from cuhe_tpu_torch.ops import crt as crt_ops
 from cuhe_tpu_torch.ops import ntt_kernels as nk
@@ -156,7 +157,8 @@ def _jax_reduce(f, mod_len, n, u, m, m_crt, primes, mus):
 def _port_reduce(f, mod_len, n, u, m, m_crt, primes):
     return barrett.barrett_reduce(
         torch.from_numpy(f), mod_len=mod_len, n=n, u_ntt=_t(u), m_ntt=_t(m),
-        m_crt=torch.from_numpy(m_crt), primes=torch.from_numpy(primes))
+        m_crt=torch.from_numpy(m_crt), primes=torch.from_numpy(primes),
+        ops=KERNELS)
 
 
 def _edge_rows(f, primes, mod_len):

@@ -12,6 +12,7 @@ import torch
 
 from cuhe_tpu.ops import ntt_kernels as jnk
 from cuhe_tpu.ops import relin as jrelin
+from cuhe_tpu_torch.context import KERNELS
 from cuhe_tpu_torch.ops import ntt_kernels as nk
 from cuhe_tpu_torch.ops import relin
 from torch_threads import one_torch_thread  # noqa: F401 (autouse)
@@ -94,7 +95,7 @@ def test_relinearize_matches_jax():
     knum, pnum = 5, 3
     raw, ek = _raw(99), _ek(100, knum, pnum)
     got = relin.relinearize(torch.from_numpy(raw), *_t(ek), w=16, knum=knum,
-                            pnum=pnum, n=N)
+                            pnum=pnum, n=N, ops=KERNELS)
     want = jrelin.relinearize(jnp.asarray(raw), *map(jnp.asarray, ek), w=16,
                               knum=knum, pnum=pnum, n=N, layout="mat")
     _eq_pair(got, want)

@@ -72,8 +72,7 @@ def run_cases(world_mesh, inputs: dict) -> dict:
             continue
         c0, c1 = pmesh.crt_split(t.pn, nc)[m.c]
         raw = pmesh.icrt_to_raw_sharded(
-            m, pmesh.shard_ciphertext(crt_in, m), t.primes[c0:c1],
-            t.bi[c0:c1], t.mi_words[c0:c1], t.m_words)
+            m, pmesh.shard_ciphertext(crt_in, m), t.planes(c0, c1))
         full = pmesh.gather_batch(raw, m)
         keep(f"icrt {name}", full.numpy())
         out[f"icrt {name} block"] = _digest(raw)
