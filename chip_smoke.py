@@ -10,7 +10,8 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      loop, per prime of the ICRT's loop and per (word, prime) of K5's prime
      loop, K5's and K8's combine's registers, spills and resident blocks
      per SM (`probes/crt_ops_time.py`), the one-pass inverse's (both
-     variants: of x, and of a product taken at the load), and the wgmma
+     variants: of x, and of a product taken at the load) and the one-pass
+     forward's (both variants: of x, and of digit windows), and the wgmma
      and TMA load
      instructions in the loops of P1's dot kernels (none fails the run),
      and measure the card's integer multiply rates (csrc/calib.cu), which
@@ -23,8 +24,11 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      card, and time both (CUDA events, median after warm-up) at the gate
      step's shapes, with each kernel's resident blocks per SM; the NTTs also
      at 16k, 32k and 64k, on inputs made of edge values (0, 1, P-1, 2^32-1,
-     2^32 and whole rows of each), and the inverse at 1, 3, 7 and 1025
-     transforms; the ICRT at every word count 1..32 and on edge residues;
+     2^32 and whole rows of each), the inverse and the forward at 1, 3, 7
+     and 1025 transforms, the digit forward at windows that straddle a
+     word and run past the top word; B1 and B6 at PRINCE level 0 timed
+     beside the two-pass design's kernels (P4's passes) on the same
+     inputs; the ICRT at every word count 1..32 and on edge residues;
      the multiply-accumulate at a later digit chunk with a
      partial, at fewer planes than the keys hold, on edge values and with
      every operand P-1, and all digits in launches of 8 against one launch;
@@ -57,8 +61,9 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      two ciphertexts against the plain path on the card, then the launch
      counts of one batch-32 step (the main path: 6 one-pass inverses, 5 of
      them taking their Z_P product at the load, so K1 0, K2 2 and K3 1
-     launches, and no plain elementwise version called on the card, or the
-     run fails), its time and peak memory, and the device
+     launches, 4 one-pass forwards and 1 of the digits, and no plain
+     elementwise version called on the card, or the run fails), its time
+     and peak memory, and the device
      time of each kernel in it, the port's and every PyTorch kernel left
      (torch.profiler);
   5. the probes (cuhe_tpu_torch/probes, `python3 -m cuhe_tpu_torch.probes`):
@@ -132,6 +137,9 @@ POINTWISE_STEP_LAUNCHES = {"zp_mul": 0, "barrett_combine": 2,
 # the one-pass inverse's launches in one gate step: of the AND's product and
 # of Barrett's four products, and of the relinearized pair
 INV_STEP_LAUNCHES = {"ntt_inv_cluster_mul": 5, "ntt_inv_cluster": 1}
+# the one-pass forward's: the two operands and Barrett's two forwards, and
+# all the relinearization digits in one launch
+FWD_STEP_LAUNCHES = {"ntt_fwd": 4, "ntt_fwd_digits": 1}
 # what the DHS AND gate and every PRINCE S-box layer launch at least once:
 # K1 (poly.c_and's product, returned in the NTT domain), the inverse of a
 # product (Barrett's), K2, K3
@@ -179,6 +187,41 @@ def profile_step(run, step_ms: float, card: str, label: str,
     for k, ms, cnt in sp["rows"]:  # every PyTorch kernel left
         if (k, ms, cnt) not in sp["port_rows"]:
             log(f"[profile] torch {ms:9.3f} ms  x{cnt:<5d} {k[:90]}")
+
+
+def fwd_against_two_passes(compare, card, x, raw, n: int, w: int,
+                           c: int) -> None:
+    """B1 on x and B6 on the digits of raw, one launch each, against the
+    two-pass design's kernels (P4's column and row passes) on the same
+    inputs: equal outputs, and the time of each way (CUDA events).  The
+    two passes of B6 run over the digits extracted before the timing: the
+    column pass's digit loader read the window's one plane a transform at
+    w = 16, as it reads the extracted digits."""
+    import torch
+    from cuhe_tpu_torch.ops import modp, ntt
+    from cuhe_tpu_torch.ops import ntt_kernels as nk
+    from cuhe_tpu_torch.probes import ablate
+    from cuhe_tpu_torch.probes.timing import cuda_ms
+
+    digits = modp.to_u32(torch.stack([ntt.extract_digit(raw, w, j)
+                                      for j in range(c)]))
+    for name, one, inp in (("ntt_fwd", lambda: nk.fwd_linear(x, n), x),
+                           ("ntt_fwd_digits",
+                            lambda: nk.ntt_fwd_digits(raw, n, w=w, j0=0, c=c),
+                            digits)):
+        cols = (lambda: ablate.cols(inp, n))
+        mid = cols()
+        rows = (lambda: ablate.rows(mid, n))
+        count = inp[..., 0].numel()
+        compare(name, f"prince_l0 {count} x {n}, against the two passes",
+                one, lambda: ablate.rows(cols(), n))
+        one_ms, cols_ms, rows_ms = (cuda_ms(f, 20) for f in (one, cols, rows))
+        log(f"[time] {name} prince_l0 {count} x {n}: one pass {one_ms:.4f} ms "
+            f"(1 launch), two passes {cols_ms + rows_ms:.4f} ms (columns "
+            f"{cols_ms:.4f} + rows {rows_ms:.4f}, 2 launches) [{card}]")
+        del mid
+    del digits
+    torch.cuda.empty_cache()
 
 
 def dhs_shapes(dev, card, compare, rand_u32, rand_pair) -> None:
@@ -1960,11 +2003,12 @@ def main() -> int:
     # P1's dot kernels: wgmma (HGMMA / IGMMA) in the consumers' loop and TMA
     # loads (UTMALDG) in the producer's; raises if either is missing
     log(f"[sass] P1 dot kernels' loops: {probe_calib.dot_sass_counts(sass)}")
-    # the one-pass inverse's instantiations, of x and of a product taken at
-    # the load: registers, stack and local bytes (spills) per thread
+    # the one-pass transforms' instantiations (the inverse of x and of a
+    # product taken at the load, the forward of x and of digit windows):
+    # registers, stack and local bytes (spills) per thread
     usage = crt_ops_time.resource_usage(so, _cuda._nvcc())
     for fn_name, u in sorted(usage.items()):
-        if "7cluster8inv_cols" in fn_name:
+        if "7cluster8inv_cols" in fn_name or "7cluster8fwd_cols" in fn_name:
             log(f"[sass] {fn_name}: {u['reg']} registers, stack {u['stack']} "
                 f"B, local {u['local']} B, shared {u['shared']} B")
     del sass
@@ -2054,15 +2098,29 @@ def main() -> int:
                     lambda: nk.inv_linear_mul(xp2, y, n, p2),
                     lambda: nk.inv_linear_mul_plain(xp2, y, n, p2))
         occ = [ablate.blocks_per_sm(k, n, dev)
-               for k in ("inv_cluster", "inv_cluster_mul")]
+               for k in ("inv_cluster", "inv_cluster_mul", "fwd_cluster",
+                         "digits")]
         log(f"[kernel] n={n}: one-pass inverse {occ[0]}, of a product "
-            f"{occ[1]} resident blocks per SM")
+            f"{occ[1]}, one-pass forward {occ[2]}, of digits {occ[3]} "
+            f"resident blocks per SM")
+        # the SMs whose blocks the clusters fill at once, of the card's
+        k = nk.inv_cluster(n)
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        for name, blocks in (("inv_cluster", occ[0]), ("fwd_cluster", occ[2])):
+            cl = ablate.active_clusters(name, n, dev)
+            log(f"[kernel] n={n}: {name} {cl} clusters of {k} at once, "
+                f"{cl * k} blocks, {cl * k / blocks:.1f} SMs' worth of {sms}")
         raw = edge_u32(torch.Size((2, 3, n // 2)))
         compare("ntt_fwd_digits", f"n={n} 4 digits x2 edge values",
                 lambda: nk.ntt_fwd_digits(raw, n, w=16, j0=1, c=4),
                 lambda: nk.ntt_fwd_digits_plain(raw, n, w=16, j0=1, c=4))
-    # the one-pass inverse at 1, 3 and 7 transforms and at more clusters of
-    # 8 blocks than the card holds at once
+        # 24-bit windows at bits 0 .. 96 of 3 words: inside a word, across
+        # a word boundary, with the high word past the top word, past it
+        compare("ntt_fwd_digits", f"n={n} 5 digits of 24 bits x2 edge values",
+                lambda: nk.ntt_fwd_digits(raw, n, w=24, j0=0, c=5),
+                lambda: nk.ntt_fwd_digits_plain(raw, n, w=24, j0=0, c=5))
+    # the one-pass transforms at 1, 3 and 7 transforms and at more clusters
+    # of 8 blocks than the card holds at once
     n = 65536
     for count in (1, 3, 7, 1025):
         xp = rand_pair((count, n))
@@ -2070,7 +2128,10 @@ def main() -> int:
         compare("ntt_inv_cluster", f"n={n} x{count}",
                 lambda: nk.inv_linear(xp, n, pc),
                 lambda: nk.inv_linear_plain(xp, n, pc))
-        del xp, pc
+        x = rand_u32((count, n // 2))
+        compare("ntt_fwd", f"n={n} x{count}", lambda: nk.fwd_linear(x, n),
+                lambda: nk.fwd_linear_plain(x, n))
+        del xp, pc, x
         torch.cuda.empty_cache()
 
     # the ICRT at every word count it takes, 1..32 (each instantiated width
@@ -2223,15 +2284,15 @@ def main() -> int:
         model = step_kernel_models(batch, pn, n, words, c, span, mi)
         # resident blocks per SM of each kernel's launches at these shapes
         occupancy = {
-            "ntt_fwd": lambda: {q: ablate.blocks_per_sm(q, n, dev)
-                                for q in ("cols", "rows")},
+            "ntt_fwd": lambda: {
+                "fwd_cluster": ablate.blocks_per_sm("fwd_cluster", n, dev)},
             "ntt_inv_cluster": lambda: {
                 "inv_cluster": ablate.blocks_per_sm("inv_cluster", n, dev)},
             "ntt_inv_cluster_mul": lambda: {
                 "inv_cluster_mul": ablate.blocks_per_sm("inv_cluster_mul", n,
                                                         dev)},
-            "ntt_fwd_digits": lambda: {q: ablate.blocks_per_sm(q, n, dev)
-                                       for q in ("digits", "rows")},
+            "ntt_fwd_digits": lambda: {
+                "digits": ablate.blocks_per_sm("digits", n, dev)},
             "icrt": lambda: crt.icrt_blocks_per_sm(pn, words, dev),
             "relin_mulacc": lambda: nk.relin_blocks_per_sm(batch, pn, dev),
         }
@@ -2263,6 +2324,8 @@ def main() -> int:
                 f"{cuda_ms(unfused, 20):.4f} ms [{card}]")
             del y, xe
         del tab
+        if tag == "prince_l0":
+            fwd_against_two_passes(compare, card, x, raw, n, w, c)
         # the later chunk's launch; and all the digits in launches of 8,
         # as the step ran them with a 64 MiB digit chunk, against one
         # launch over all of them
@@ -2337,8 +2400,8 @@ def main() -> int:
     torch.cuda.synchronize()
     launches = dict(_cuda.LAUNCHES)
     log(f"[prince] launches in one batch-32 step: {launches}")
-    for name, want_n in {**POINTWISE_STEP_LAUNCHES,
-                         **INV_STEP_LAUNCHES}.items():
+    for name, want_n in {**POINTWISE_STEP_LAUNCHES, **INV_STEP_LAUNCHES,
+                         **FWD_STEP_LAUNCHES}.items():
         if launches.get(name, 0) != want_n:
             raise AssertionError(f"prince step: {name} launched "
                                  f"{launches.get(name, 0)} times, expected "

@@ -34,8 +34,8 @@
 //    each butterfly is an add, a subtract and a shift with the folds
 //    2^64 = 2^32 - 1 and 2^96 = -1.  Then the inner twiddle w_L^(a kb): a
 //    shift where L/64 divides a kb, else one generic product (0.5 per
-//    coefficient at L = 256, 0.25 at 128; the one-pass inverse takes a
-//    product for every one, which its runs measured faster).  One
+//    coefficient at L = 256, 0.25 at 128; the one-pass transforms take a
+//    product for every one, which the inverse's runs measured faster).  One
 //    shared-memory exchange, and a second thread holds a length-M
 //    sub-sequence for the second DFT.  The four-step twiddle w^(k1 j2) of
 //    the forward column pass and the inverse row pass is applied after the
@@ -55,43 +55,50 @@
 //    each plane.
 //  * The inverse column pass reduces mod p by Barrett (mod_p32), with one
 //    division per block for its constant.
-//  * The forward transforms run each pass over all their transforms at
-//    once: chunks small enough for the intermediate to stay in L2 measured
-//    slower (PERF.md, section 6), since the passes are not held by device
-//    memory and a small chunk fills the card for about one wave.
-//  * The inverse runs in one launch (cluster::inv_cols): a thread-block
-//    cluster of K blocks holds one whole transform in its shared memory
-//    from the first load to the mod-p store, so it moves 12 bytes per
-//    coefficient (the lo and hi planes in, the residue out) where the two
-//    passes moved 28 through a u64 scratch.  Block r of the cluster holds
-//    the n1/K rows k1 whose k1 mod (n1/16) lies in its share of the column
-//    pass's length-16 sub-DFTs: it runs the row pass on them and the
-//    column pass's first stage in its own shared memory, and after one
-//    cluster barrier the second stage reads its columns from every block's
-//    shared memory (ld.shared::cluster) and stores the residues.  Its time
-//    is the integer units', as the passes' was: what the one pass saves is
-//    the scratch's traffic and a launch, and the blocks an SM holds at once
-//    set the rest.  So K is the smallest power of two up to 8 whose blocks
-//    fit four to an SM, what the registers hold at 64 a thread
-//    (ops/ntt_kernels.py::inv_cluster): 4 at n = 16384 and 8 at 32768, 32
-//    KiB of words a block; 8 at 65536, three blocks of 64 KiB.  Its MUL
-//    variant takes the Z_P product that feeds an inverse (the gate's AND,
-//    Barrett's two table products) at its load: two more planes read and
-//    one gl_mul a coefficient, where pointwise.cu's K1 would write the
-//    product through device memory for this kernel to read back.  The two
-//    passes' inverse kernels (ntt_rows<true>, inv_cols) stay as P3's stop
-//    points of that design (probes/ablate.py).
+//  * Both transforms run in one launch each, a thread-block cluster of K
+//    blocks holding one whole transform in its shared memory from the
+//    first load to the last store.  The inverse (cluster::inv_cols) moves
+//    12 bytes per coefficient (the lo and hi planes in, the residue out)
+//    where its two passes moved 28 through a u64 scratch; the forward
+//    (cluster::fwd_cols) moves 10 (the u32 coefficients in, the lo and hi
+//    planes out) where its two passes moved 26, writing the pair and
+//    reading it back between them.  The inverse's block r holds the n1/K
+//    rows k1 whose k1 mod (n1/16) lies in its share of the column pass's
+//    length-16 sub-DFTs: it runs the row pass on them and the column
+//    pass's first stage in its own shared memory, and after one cluster
+//    barrier the second stage reads its columns from every block's shared
+//    memory (ld.shared::cluster) and stores the residues.  The forward runs
+//    the stages in reverse: block r loads its share of the sub-DFTs from
+//    device memory, runs their first stage and stores each result into the
+//    shared memory of the block that holds its output rows
+//    (st.shared::cluster); after one cluster barrier each block runs the
+//    column pass's second stage and the row pass on its own n1/K rows and
+//    stores them.  Their time is the integer units', as the passes' was:
+//    what the one pass saves is the round trip's traffic and a launch, and
+//    the blocks an SM holds at once set the rest.  So K is the smallest
+//    power of two up to 8 whose blocks fit four to an SM, what the
+//    registers hold at 64 a thread (ops/ntt_kernels.py::inv_cluster, for
+//    both): 4 at n = 16384 and 8 at 32768, 32 KiB of words a block; 8 at
+//    65536, three blocks of 64 KiB.  The inverse's MUL variant takes the
+//    Z_P product that feeds an inverse (the gate's AND, Barrett's two
+//    table products) at its load: two more planes read and one gl_mul a
+//    coefficient, where pointwise.cu's K1 would write the product through
+//    device memory for this kernel to read back.  The forward's DIGIT
+//    variant takes B6's relinearization digits, w-bit windows of the RAW
+//    words, at its load.  The two passes' kernels (fwd_cols, ntt_rows,
+//    inv_cols) stay as P3's and P4's stop points of that design
+//    (probes/ablate.py), and the forward's for the blocks of a transform
+//    split across devices (parallel/mesh.py::ntt_fwd_sharded).
 // The tensor cores are not used: a 64-bit product is 64 int8 products, so a
 // length-16 stage as a dense matrix costs ~2,000 int8 operations per
 // coefficient where the shift-only radix-16 DFT costs a few dozen integer
 // operations.
 //
-// Stop points.  Each pass takes a compile-time STOP (enum Stop below); the
-// transforms instantiate kFull, and the per-pass probes
-// (cuhe_tpu_torch/probes/ablate.py, the counterparts of the TPU stage
-// ablations scripts/tpu_probe_inv_ablate.py and tpu_probe_fwd32_ablate.py)
-// launch the same kernels stopped earlier, so a probe times exactly the code
-// the transforms run, up to its stop point.
+// Stop points.  Each pass of the two-pass design takes a compile-time STOP
+// (enum Stop below); the transform's blocks across devices instantiate
+// kFull, and the per-pass probes (cuhe_tpu_torch/probes/ablate.py, the
+// counterparts of the TPU stage ablations scripts/tpu_probe_inv_ablate.py
+// and tpu_probe_fwd32_ablate.py) launch the same kernels stopped earlier.
 
 #include <cuda_runtime.h>
 
@@ -209,24 +216,22 @@ __device__ __forceinline__ uint64_t inner_twiddle(uint64_t x, int a, int kb,
 // bitrev(r), stage 2 stores without DFTs.
 // ---------------------------------------------------------------------------
 
-// Forward column pass of `count` transforms: length-n1 DFTs over j1 (rows
-// j1 >= n1/2 are zero), times w^(k1 j2), stored at [k1, jc] of the output
-// planes.  Each transform holds C = 2^logc of the n2 columns, j2 = j2_0 +
-// jc for jc < C, as [n1/2, C] in and [n1, C] out: all of them (logc =
-// logn2, j2_0 = 0), or the column block of a transform split across
-// devices (cuhe_tpu_torch/parallel/mesh.py::ntt_fwd_sharded).  Lane `lane`
-// of block `blockIdx.x` takes column g = 32 blockIdx.x + lane of the count
-// * C; where C < 32 a tile spans 32 / C transforms, and lanes past the last
-// transform load zeros and store nothing.
-// DIGIT: the input is the w-bit window at bit w * (j0 + digit) of RAW words
-// [batch, w32, n/2] (ntt_1_*_ext_block semantics: planes past the top word
-// read zero, no high-word bits at shift 0); transform = digit * batch + b.
-template <bool DIGIT, int STOP, int LOGL>
+// Forward column pass of `count` transforms (P4's stop points, and the
+// column blocks of a transform split across devices; whole transforms run
+// cluster::fwd_cols): length-n1 DFTs over j1 (rows j1 >= n1/2 are zero),
+// times w^(k1 j2), stored at [k1, jc] of the output planes.  Each transform
+// holds C = 2^logc of the n2 columns, j2 = j2_0 + jc for jc < C, as
+// [n1/2, C] in and [n1, C] out: all of them (logc = logn2, j2_0 = 0), or
+// the column block of a transform split across devices
+// (cuhe_tpu_torch/parallel/mesh.py::ntt_fwd_sharded).  Lane `lane` of block
+// `blockIdx.x` takes column g = 32 blockIdx.x + lane of the count * C; where
+// C < 32 a tile spans 32 / C transforms, and lanes past the last transform
+// load zeros and store nothing.
+template <int STOP, int LOGL>
 __global__ void __launch_bounds__(kThreads)
 fwd_cols(const uint32_t* __restrict__ x, uint32_t* __restrict__ out_lo,
          uint32_t* __restrict__ out_hi, const uint64_t* __restrict__ pw,
-         int logn2, int logc, int j2_0, int count, int batch, int w32, int w,
-         int j0) {
+         int logn2, int logc, int j2_0, int count) {
   constexpr int L = 1 << LOGL, M = L >> 4, LOGM = LOGL - 4;
   constexpr int S64 = kShift64<false>;
   extern __shared__ uint64_t s[];
@@ -237,22 +242,7 @@ fwd_cols(const uint32_t* __restrict__ x, uint32_t* __restrict__ out_lo,
   const size_t g = ((size_t)blockIdx.x << kLogTile) + lane;
   const int tr = (int)(g >> logc), jc = (int)(g & (c - 1)), j2 = j2_0 + jc;
   const bool live = tr < count;
-
-  const uint32_t* src = nullptr;
-  const uint32_t* src_hi = nullptr;
-  int sh = 0;
-  uint32_t mask = 0xFFFFFFFFu;
-  if (live && DIGIT) {
-    const int b = tr % batch, digit = tr / batch;
-    const int bit = w * (j0 + digit);
-    const int k = bit >> 5;
-    sh = bit & 31;
-    mask = w < 32 ? (1u << w) - 1u : 0xFFFFFFFFu;
-    src = k < w32 ? x + ((size_t)b * w32 + k) * half : nullptr;
-    if (sh && k + 1 < w32) src_hi = x + ((size_t)b * w32 + k + 1) * half;
-  } else if (live) {
-    src = x + tr * half;
-  }
+  const uint32_t* src = live ? x + tr * half : nullptr;
 
   // every task's loads are issued before the first DFT, so a warp has 8 or
   // 16 128-byte loads in flight
@@ -263,13 +253,7 @@ fwd_cols(const uint32_t* __restrict__ x, uint32_t* __restrict__ out_lo,
 #pragma unroll
     for (int jb = 0; jb < 8; ++jb) {
       const size_t off = (size_t)(warp + t * kWarps + M * jb) * c + jc;
-      if (DIGIT) {
-        uint32_t val = src ? src[off] >> sh : 0u;
-        if (src_hi) val |= src_hi[off] << (32 - sh);
-        in[t][jb] = val & mask;
-      } else {
-        in[t][jb] = src ? src[off] : 0u;
-      }
+      in[t][jb] = src ? src[off] : 0u;
     }
   }
 #pragma unroll
@@ -398,10 +382,11 @@ inv_cols(const uint64_t* __restrict__ a_in, uint32_t* __restrict__ out,
 // store reads natural positions.
 // ---------------------------------------------------------------------------
 
-// !INV: forward stage 2, pair in, pair out (in place in the transforms).
-// INV: inverse stage 1 (pw holds w^-e), times w^-(k1 t2), into u64 words
-// (P3's stop points).  `rows` rows in all: the last tile's rows past them
-// load zeros and store nothing.
+// !INV: forward stage 2, pair in, pair out (P4's stop points, and the row
+// blocks of a transform split across devices).  INV: inverse stage 1 (pw
+// holds w^-e), times w^-(k1 t2), into u64 words (P3's stop points).
+// `rows` rows in all: the last tile's rows past them load zeros and store
+// nothing.
 template <bool INV, int STOP, int LOGL>
 __global__ void __launch_bounds__(kThreads)
 ntt_rows(const uint32_t* in_lo, const uint32_t* in_hi, uint32_t* out_lo,
@@ -556,6 +541,18 @@ struct MulOperand {
 template <>
 struct MulOperand<false> {};
 
+// The digit window of the forward's DIGIT variant (B6): transform tr =
+// digit * batch + b takes the w-bit window at bit w (j0 + digit) of RAW
+// words [batch, w32, n/2] (ntt_1_*_ext_block semantics: planes past the top
+// word read zero, no high-word bits at shift 0).  Without DIGIT it is empty,
+// and, as the kernel's last parameter, moves none of the others.
+template <bool DIGIT>
+struct DigitWindow {
+  int batch, w32, w, j0;
+};
+template <>
+struct DigitWindow<false> {};
+
 namespace cluster {
 
 // Every block of the cluster waits here; the shared stores before it are
@@ -574,6 +571,17 @@ __device__ __forceinline__ uint32_t map_rank(uint32_t addr, uint32_t rank) {
   return r;
 }
 
+// barrier() in two halves, with no memory ordering: arrive() at the start,
+// and wait() before the first store into another block's shared memory,
+// which every block of the cluster has then started.
+__device__ __forceinline__ void arrive() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;" ::: "memory");
+}
+
+__device__ __forceinline__ void wait() {
+  asm volatile("barrier.cluster.wait.aligned;" ::: "memory");
+}
+
 __device__ __forceinline__ uint64_t load(uint32_t addr) {
   uint64_t v;
   asm volatile("ld.shared::cluster.u64 %0, [%1];"
@@ -581,10 +589,16 @@ __device__ __forceinline__ uint64_t load(uint32_t addr) {
   return v;
 }
 
-// x * w_L^(a kb), w_L = w^-(n/L), as one product with the table's entry
-// (pw: w^-e, e < n).  inner_twiddle takes a shift where L/64 divides a kb;
-// with a known only at run time that shift, its amount and its branches
-// cost the integer units more than the product (PERF.md, section 6).
+__device__ __forceinline__ void store(uint32_t addr, uint64_t v) {
+  asm volatile("st.shared::cluster.u64 [%0], %1;" ::"r"(addr), "l"(v)
+               : "memory");
+}
+
+// x * w_L^(a kb), w_L = w^(n/L) (w^-(n/L) for the inverse), as one product
+// with the table's entry (pw: w^e, or w^-e, e < n).  inner_twiddle takes a
+// shift where L/64 divides a kb; with a known only at run time that shift,
+// its amount and its branches cost the integer units more than the product
+// (PERF.md, section 6).
 template <int LOGL, int LOGN>
 __device__ __forceinline__ uint64_t table_twiddle(uint64_t x, int a, int kb,
                                                   const uint64_t* pw) {
@@ -748,6 +762,195 @@ inv_cols(const uint32_t* __restrict__ x_lo, const uint32_t* __restrict__ x_hi,
   barrier();
 }
 
+// ---------------------------------------------------------------------------
+// the forward in one pass, in a cluster's shared memory
+//
+// A cluster of K = 2^LOGK blocks takes one transform, as the inverse does,
+// and runs the inverse's stages in reverse order.  Block `rank` computes
+// the column pass's length-16 sub-DFTs a = k1 mod M1 in [MK rank, MK (rank
+// + 1)) (M1 = n1/16, MK = M1/K) and then holds the ROWS = n1/K output rows
+// k1 whose k1 mod 16 lies in [KB rank, KB (rank + 1)) (KB = 16/K): local
+// row kbl M1 + ka holds k1 = KB rank + kbl + 16 ka.  Rows are padded as in
+// the row tile.
+//  columns 1: task (al, 32 columns): the 8 nonzero words j1 = a + M1 jb,
+//             jb < 8, of sub-DFT a = MK rank + al, loaded straight from
+//             device memory (DIGIT: the digit's window of the RAW words),
+//             the half-zero length-16 DFT and the inner twiddles
+//             (table_twiddle); element kb stored into the shared memory of
+//             block kb / KB at its local row (kb mod KB) M1 + a
+//             (st.shared::cluster), once every block has started (the
+//             arrive at the kernel's start, the wait before the first store);
+//  cluster barrier: every store has landed;
+//  columns 2: task (kbl, 32 columns): local rows kbl M1 + a, a < M1, the
+//             length-M1 DFT, times w^(k1 j2), element ka back at local row
+//             kbl M1 + ka;
+//  rows 1:    task (a2, 32 rows): elements j2 = a2 + M2 jb (M2 = n2/16),
+//             the length-16 DFT and the inner twiddles (table_twiddle),
+//             element kb at position 16 a2 + kb;
+//  rows 2:    task (kb, 32 rows): positions kb + 16 a, the length-M2 DFT,
+//             element ka back at kb + 16 ka = k2: each row in natural order;
+//  store:     word k2 of row k1 at k1 n2 + k2, 16-byte stores on each plane.
+// Element j2 = a2 + M2 jb of a row sits at position 16 a2 + (jb ^ a2 16/M2)
+// (col_at): rows 1 reads the 16 positions it writes, and the 32 neighbouring
+// columns of a warp in the column stages fill each bank twice.  A half warp
+// of the store reads four words of four rows, which the rows' padding puts in
+// distinct banks.  After the second barrier a block touches only its own
+// shared memory, so it needs no barrier before it exits.
+// ---------------------------------------------------------------------------
+
+// x: u32 [count, n/2] (DIGIT: RAW words [batch, w32, n/2], count = c *
+// batch) -> out_lo, out_hi: u32 [count, n] mat-linear.  grid: count * K
+// blocks in clusters of K, BLOCKS of them resident on an SM; each stage's
+// loop runs one task at a time (unroll 1), as the inverse's.
+template <bool DIGIT, int LOGN1, int LOGN2, int LOGK, int BLOCKS>
+__global__ void __launch_bounds__(kThreads, BLOCKS)
+fwd_cols(const uint32_t* __restrict__ x, uint32_t* __restrict__ out_lo,
+         uint32_t* __restrict__ out_hi, const uint64_t* __restrict__ pw,
+         const DigitWindow<DIGIT> d) {
+  constexpr int LOGN = LOGN1 + LOGN2, N2 = 1 << LOGN2, K = 1 << LOGK;
+  constexpr int LOGM1 = LOGN1 - 4, LOGM2 = LOGN2 - 4;
+  constexpr int M1 = 1 << LOGM1, M2 = 1 << LOGM2, MK = M1 / K, KB = 16 / K;
+  constexpr int ROWS = KB * M1, GROUPS = ROWS / kTileRows;
+  constexpr int TILES = N2 / kTileCols;
+  constexpr int S64 = kShift64<false>;
+  constexpr size_t n = (size_t)1 << LOGN, half = n / 2;
+  static_assert(MK >= 1 && KB >= 1 && GROUPS >= 1, "whole warps of rows");
+  static_assert(MK * TILES >= kWarps, "a first column task for every warp");
+  static_assert(LOGM2 >= 2 && LOGM2 <= 4, "a row of 4 to 16 vectors of 16");
+  using T = RowTile<LOGN2>;
+  extern __shared__ uint64_t s[];
+  arrive();
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int rank = blockIdx.x & (K - 1), tr = blockIdx.x >> LOGK;
+  // the position of element j2 = a2 + M2 jb in its row
+  const auto col_at = [](int j2) {
+    const int a2 = j2 & (M2 - 1);
+    return 16 * a2 + ((j2 >> LOGM2) ^ (a2 << (4 - LOGM2)));
+  };
+
+  // the transform's coefficients [n1/2, n2]; DIGIT: the plane of the
+  // window's low bits (none past the top word) and of its high bits (none
+  // at shift 0 or past the top word)
+  const uint32_t* src = nullptr;
+  [[maybe_unused]] const uint32_t* src_hi = nullptr;
+  [[maybe_unused]] int sh = 0;
+  [[maybe_unused]] uint32_t mask = 0;
+  if constexpr (DIGIT) {
+    const int b = tr % d.batch, bit = d.w * (d.j0 + tr / d.batch);
+    const int k = bit >> 5;
+    sh = bit & 31;
+    mask = d.w < 32 ? (1u << d.w) - 1u : 0xFFFFFFFFu;
+    if (k < d.w32) src = x + ((size_t)b * d.w32 + k) * half;
+    if (sh && k + 1 < d.w32) src_hi = x + ((size_t)b * d.w32 + k + 1) * half;
+  } else {
+    src = x + (size_t)tr * half;
+  }
+
+  // columns, stage 1, into the shared memory of the block that holds kb
+  const uint32_t s0 = (uint32_t)__cvta_generic_to_shared(s);
+#pragma unroll 1
+  for (int t = warp; t < MK * TILES; t += kWarps) {
+    const int a = MK * rank + (t & (MK - 1));
+    const int j2 = (t / MK) * kTileCols + lane;
+    uint64_t v[16];
+#pragma unroll
+    for (int jb = 0; jb < 8; ++jb) {
+      const size_t off = ((size_t)(a + M1 * jb) << LOGN2) + j2;
+      if constexpr (DIGIT) {
+        uint32_t val = src ? src[off] >> sh : 0u;
+        if (src_hi) val |= src_hi[off] << (32 - sh);
+        v[jb] = val & mask;
+      } else {
+        v[jb] = src[off];
+      }
+      v[jb + 8] = 0;
+    }
+    dft_regs<4, 4 * S64 % 192, true>(v);
+    if (t == warp) wait();
+    const int at = col_at(j2);
+#pragma unroll
+    for (int kb = 0; kb < 16; ++kb)
+      store(map_rank(s0 + 8 * T::at((kb & (KB - 1)) * M1 + a, at), kb / KB),
+            table_twiddle<LOGN1, LOGN>(v[bitrev_c(kb, 4)], a, kb, pw));
+  }
+  barrier();
+
+  // columns, stage 2, and the four-step twiddle w^(k1 j2) of rows k1 = kb +
+  // 16 ka by the recurrence w^(kb j2) (w^(16 j2))^ka
+#pragma unroll 1
+  for (int t = warp; t < KB * TILES; t += kWarps) {
+    const int kbl = t & (KB - 1), j2 = (t / KB) * kTileCols + lane;
+    const int at = col_at(j2);
+    uint64_t v[M1];
+#pragma unroll
+    for (int a = 0; a < M1; ++a) v[a] = s[T::at(kbl * M1 + a, at)];
+    dft_regs<LOGM1, 64 / M1 * S64 % 192, false>(v);
+    const size_t kb = KB * rank + kbl;
+    uint64_t tw = ldg64(pw + ((kb * j2) & (n - 1)));
+    const uint64_t step = ldg64(pw + (((size_t)16 * j2) & (n - 1)));
+#pragma unroll
+    for (int ka = 0; ka < M1; ++ka) {
+      s[T::at(kbl * M1 + ka, at)] = gl_mul(v[bitrev_c(ka, LOGM1)], tw);
+      if (ka + 1 < M1) tw = gl_mul(tw, step);
+    }
+  }
+  __syncthreads();
+
+  // rows, stage 1
+#pragma unroll 1
+  for (int t = warp; t < M2 * GROUPS; t += kWarps) {
+    const int a2 = t & (M2 - 1), lr = ((t >> LOGM2) << kLogTile) + lane;
+    const int swz = a2 << (4 - LOGM2);
+    uint64_t v[16];
+#pragma unroll
+    for (int jb = 0; jb < 16; ++jb) v[jb] = s[T::at(lr, 16 * a2 + (jb ^ swz))];
+    dft_regs<4, 4 * S64 % 192, false>(v);
+#pragma unroll
+    for (int kb = 0; kb < 16; ++kb)
+      s[T::at(lr, 16 * a2 + kb)] =
+          table_twiddle<LOGN2, LOGN>(v[bitrev_c(kb, 4)], a2, kb, pw);
+  }
+  __syncthreads();
+
+  // rows, stage 2
+#pragma unroll 1
+  for (int t = warp; t < 16 * GROUPS; t += kWarps) {
+    const int kb = t & 15, lr = ((t >> 4) << kLogTile) + lane;
+    uint64_t v[M2];
+#pragma unroll
+    for (int a = 0; a < M2; ++a) v[a] = s[T::at(lr, kb + 16 * a)];
+    dft_regs<LOGM2, 64 / M2 * S64 % 192, false>(v);
+#pragma unroll
+    for (int ka = 0; ka < M2; ++ka)
+      s[T::at(lr, kb + 16 * ka)] = v[bitrev_c(ka, LOGM2)];
+  }
+  __syncthreads();
+
+  // 16-byte vector vec (of N2 / 4) of local row lr: a half warp's 16 lanes
+  // take vectors 4 vh .. 4 vh + 3 of rows 4 rh .. 4 rh + 3, a warp two vh
+  // of the same rows (128 bytes of each row on each plane)
+  constexpr int VECS = ROWS * N2 / 4 / kThreads;
+  static_assert(VECS * kThreads == ROWS * N2 / 4, "whole vectors a thread");
+  const size_t base = (size_t)tr << LOGN;
+#pragma unroll
+  for (int u = 0; u < VECS; ++u) {
+    const int i = threadIdx.x + u * kThreads, hv = i >> 4;
+    const int lr = ((i >> 2) & 3) + 4 * (hv >> LOGM2);
+    const int vec = (i & 3) + 4 * (hv & (M2 - 1));
+    uint64_t w[4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) w[q] = s[T::at(lr, 4 * vec + q)];
+    const int k1 = KB * rank + (lr >> LOGM1) + 16 * (lr & (M1 - 1));
+    const size_t o = base + ((size_t)k1 << LOGN2) + 4 * vec;
+    *reinterpret_cast<uint4*>(out_lo + o) =
+        make_uint4((uint32_t)w[0], (uint32_t)w[1], (uint32_t)w[2],
+                   (uint32_t)w[3]);
+    *reinterpret_cast<uint4*>(out_hi + o) =
+        make_uint4((uint32_t)(w[0] >> 32), (uint32_t)(w[1] >> 32),
+                   (uint32_t)(w[2] >> 32), (uint32_t)(w[3] >> 32));
+  }
+}
+
 }  // namespace cluster
 
 // ---------------------------------------------------------------------------
@@ -796,11 +999,11 @@ cudaError_t dispatch(int logl, F f) {
 // The column pass over `count` transforms, each holding its columns
 // j2_0 .. j2_0 + 2^logc - 1: all n2 of them (logc = logn2, j2_0 = 0), or a
 // column block.
-template <bool DIGIT, int STOP>
+template <int STOP>
 cudaError_t launch_cols(const uint32_t* x, uint32_t* lo, uint32_t* hi,
                         const uint64_t* pw, int count, int logn1, int logn2,
-                        int logc, int j2_0, int batch, int w32, int w, int j0,
-                        cudaStream_t stream, int* occ = nullptr) {
+                        int logc, int j2_0, cudaStream_t stream,
+                        int* occ = nullptr) {
   if (logc < 0 || logc > logn2 || j2_0 < 0 ||
       j2_0 + (1 << logc) > (1 << logn2))
     return cudaErrorInvalidValue;
@@ -808,9 +1011,8 @@ cudaError_t launch_cols(const uint32_t* x, uint32_t* lo, uint32_t* hi,
   const int blocks =
       (int)((((long long)count << logc) + kTileCols - 1) >> kLogTile);
   return dispatch(logn1, [&](auto logl) {
-    return run<&fwd_cols<DIGIT, STOP, decltype(logl)::value>>(
-        blocks, smem, stream, occ, x, lo, hi, pw, logn2, logc, j2_0, count,
-        batch, w32, w, j0);
+    return run<&fwd_cols<STOP, decltype(logl)::value>>(
+        blocks, smem, stream, occ, x, lo, hi, pw, logn2, logc, j2_0, count);
   });
 }
 
@@ -835,9 +1037,9 @@ cudaError_t launch_rows(const uint32_t* in_lo, const uint32_t* in_hi,
 }
 
 // Call f(Int<LOGN1>, Int<LOGN2>, Int<LOGK>, Int<BLOCKS>) with the cluster
-// size of the one-pass inverse at n = 2^(logn1 + logn2) and its blocks per
-// SM (ops/ntt_kernels.py::inv_cluster, inv_cluster_blocks); any other
-// factorization is refused.
+// size of the one-pass transforms at n = 2^(logn1 + logn2) and their blocks
+// per SM (ops/ntt_kernels.py::inv_cluster, inv_cluster_blocks: the forward
+// takes the inverse's); any other factorization is refused.
 template <typename F>
 cudaError_t dispatch_cluster(int logn1, int logn2, F f) {
   if (logn1 == 7 && logn2 == 7)
@@ -849,9 +1051,43 @@ cudaError_t dispatch_cluster(int logn1, int logn2, F f) {
   return cudaErrorInvalidValue;
 }
 
+// What run_cluster writes to *occ where it holds this on entry: the
+// clusters the device holds at once, rather than the blocks an SM holds.
+constexpr int kActiveClusters = -1;
+
+// Launch kernel KERN over `count` transforms in clusters of 2^LOGK blocks,
+// each holding n1/2^LOGK padded rows of n2 words in shared memory; logk
+// must be the one the factorization is built for.  With occ set, write its
+// resident blocks per SM there instead (or its clusters the device holds at
+// once, where *occ is kActiveClusters).
+template <auto KERN, int LOGN1, int LOGN2, int LOGK, typename... A>
+cudaError_t run_cluster(int count, int logk, cudaStream_t stream, int* occ,
+                        A... args) {
+  constexpr int smem = (1 << (LOGN1 - LOGK)) * RowTile<LOGN2>::W * 8;
+  if (!occ && logk != LOGK) return cudaErrorInvalidValue;
+  const cudaError_t attr = allow_smem<KERN, smem>();
+  if (attr != cudaSuccess) return attr;
+  if (occ && *occ != kActiveClusters)
+    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(occ, KERN, kThreads,
+                                                         smem);
+  cudaLaunchAttribute dims[1];
+  dims[0].id = cudaLaunchAttributeClusterDimension;
+  dims[0].val.clusterDim.x = 1 << LOGK;
+  dims[0].val.clusterDim.y = 1;
+  dims[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)(occ ? 1 : count) << LOGK);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = dims;
+  cfg.numAttrs = 1;
+  if (occ) return cudaOccupancyMaxActiveClusters(occ, KERN, &cfg);
+  return cudaLaunchKernelEx(&cfg, KERN, args...);
+}
+
 // The one-pass inverse over `count` transforms, in clusters of 2^logk
-// blocks; logk must be the one its factorization is built for.  MUL: of
-// the product with y.
+// blocks.  MUL: of the product with y.
 template <bool MUL>
 cudaError_t launch_inv_cluster(const uint32_t* x_lo, const uint32_t* x_hi,
                                MulOperand<MUL> y, uint32_t* out,
@@ -862,29 +1098,26 @@ cudaError_t launch_inv_cluster(const uint32_t* x_lo, const uint32_t* x_hi,
                                             auto blocks) {
     constexpr int LOGN1 = decltype(l1)::value, LOGN2 = decltype(l2)::value,
                   LOGK = decltype(lk)::value, BLOCKS = decltype(blocks)::value;
-    constexpr int smem = (1 << (LOGN1 - LOGK)) * RowTile<LOGN2>::W * 8;
-    const auto k = &cluster::inv_cols<MUL, LOGN1, LOGN2, LOGK, BLOCKS>;
-    if (!occ && logk != LOGK) return cudaErrorInvalidValue;
-    const cudaError_t attr =
-        allow_smem<&cluster::inv_cols<MUL, LOGN1, LOGN2, LOGK, BLOCKS>,
-                   smem>();
-    if (attr != cudaSuccess) return attr;
-    if (occ)
-      return cudaOccupancyMaxActiveBlocksPerMultiprocessor(occ, k, kThreads,
-                                                           smem);
-    cudaLaunchAttribute dims[1];
-    dims[0].id = cudaLaunchAttributeClusterDimension;
-    dims[0].val.clusterDim.x = 1 << LOGK;
-    dims[0].val.clusterDim.y = 1;
-    dims[0].val.clusterDim.z = 1;
-    cudaLaunchConfig_t cfg = {};
-    cfg.gridDim = dim3((unsigned)count << LOGK);
-    cfg.blockDim = dim3(kThreads);
-    cfg.dynamicSmemBytes = smem;
-    cfg.stream = stream;
-    cfg.attrs = dims;
-    cfg.numAttrs = 1;
-    return cudaLaunchKernelEx(&cfg, k, x_lo, x_hi, out, p, pwi, y);
+    return run_cluster<&cluster::inv_cols<MUL, LOGN1, LOGN2, LOGK, BLOCKS>,
+                       LOGN1, LOGN2, LOGK>(count, logk, stream, occ, x_lo,
+                                           x_hi, out, p, pwi, y);
+  });
+}
+
+// The one-pass forward over `count` transforms, in clusters of 2^logk
+// blocks.  DIGIT: of the digit windows d of RAW words.
+template <bool DIGIT>
+cudaError_t launch_fwd_cluster(const uint32_t* x, uint32_t* lo, uint32_t* hi,
+                               const uint64_t* pw, DigitWindow<DIGIT> d,
+                               int count, int logn1, int logn2, int logk,
+                               cudaStream_t stream, int* occ = nullptr) {
+  return dispatch_cluster(logn1, logn2, [&](auto l1, auto l2, auto lk,
+                                            auto blocks) {
+    constexpr int LOGN1 = decltype(l1)::value, LOGN2 = decltype(l2)::value,
+                  LOGK = decltype(lk)::value, BLOCKS = decltype(blocks)::value;
+    return run_cluster<&cluster::fwd_cols<DIGIT, LOGN1, LOGN2, LOGK, BLOCKS>,
+                       LOGN1, LOGN2, LOGK>(count, logk, stream, occ, x, lo,
+                                           hi, pw, d);
   });
 }
 
@@ -902,6 +1135,55 @@ cudaError_t launch_inv_cols(const uint64_t* a, uint32_t* out,
   });
 }
 
+// The occupancy query of the kernel that pass `pass` launches (the ids of
+// cuhe_ntt_blocks_per_sm) into *occ.
+cudaError_t query_pass(int pass, int l1, int l2, int* occ) {
+  cudaError_t e = cudaErrorInvalidValue;
+  switch (pass) {
+    case 0:
+      e = launch_cols<kIo>(0, 0, 0, 0, 0, l1, l2, l2, 0, 0, occ);
+      break;
+    case 1:
+      e = launch_cols<kNoEpilogue>(0, 0, 0, 0, 0, l1, l2, l2, 0, 0, occ);
+      break;
+    case 2:
+      e = launch_cols<kFull>(0, 0, 0, 0, 0, l1, l2, l2, 0, 0, occ);
+      break;
+    case 3:
+      e = launch_rows<false, kFull>(0, 0, 0, 0, 0, 0, 0, l1, l2, 0, occ);
+      break;
+    case 4:
+      e = launch_rows<true, kIo>(0, 0, 0, 0, 0, 0, 0, l1, l2, 0, occ);
+      break;
+    case 5:
+      e = launch_rows<true, kFull>(0, 0, 0, 0, 0, 0, 0, l1, l2, 0, occ);
+      break;
+    case 6:
+      e = launch_inv_cols<kNoEpilogue>(0, 0, 0, 0, 0, 0, l1, l2, 0, occ);
+      break;
+    case 7:
+      e = launch_inv_cols<kFull>(0, 0, 0, 0, 0, 0, l1, l2, 0, occ);
+      break;
+    case 8:
+      e = launch_fwd_cluster(nullptr, nullptr, nullptr, nullptr,
+                             DigitWindow<true>{}, 0, l1, l2, 0, 0, occ);
+      break;
+    case 9:
+      e = launch_inv_cluster(nullptr, nullptr, MulOperand<false>{}, nullptr,
+                             nullptr, nullptr, 0, l1, l2, 0, 0, occ);
+      break;
+    case 10:
+      e = launch_inv_cluster(nullptr, nullptr, MulOperand<true>{}, nullptr,
+                             nullptr, nullptr, 0, l1, l2, 0, 0, occ);
+      break;
+    case 11:
+      e = launch_fwd_cluster(nullptr, nullptr, nullptr, nullptr,
+                             DigitWindow<false>{}, 0, l1, l2, 0, 0, occ);
+      break;
+  }
+  return e;
+}
+
 }  // namespace
 
 extern "C" {
@@ -910,30 +1192,26 @@ const char* cuhe_error_string(int e) {
   return cudaGetErrorString((cudaError_t)e);
 }
 
-// x: u32 [count, n/2] -> lo, hi: u32 [count, n] mat-linear.
+// x: u32 [count, n/2] -> lo, hi: u32 [count, n] mat-linear: one launch, a
+// cluster of 2^logk blocks per transform.
 int cuhe_ntt_fwd(const uint32_t* x, uint32_t* lo, uint32_t* hi,
                  const uint64_t* pw, int count, int logn1, int logn2,
-                 cudaStream_t stream) {
-  cudaError_t e = launch_cols<false, kFull>(x, lo, hi, pw, count, logn1,
-                                            logn2, logn2, 0, 1, 0, 0, 0,
-                                            stream);
-  if (e != cudaSuccess) return (int)e;
-  return (int)launch_rows<false, kFull>(lo, hi, lo, hi, nullptr, pw,
-                                        count << logn1, logn1, logn2, stream);
+                 int logk, cudaStream_t stream) {
+  return (int)launch_fwd_cluster(x, lo, hi, pw, DigitWindow<false>{}, count,
+                                 logn1, logn2, logk, stream);
 }
 
 // raw: u32 [batch, w32, n/2] -> lo, hi: u32 [c, batch, n] mat-linear NTTs of
-// digits j0 .. j0 + c - 1.
+// digits j0 .. j0 + c - 1, in one launch as cuhe_ntt_fwd.
 int cuhe_ntt_fwd_digits(const uint32_t* raw, uint32_t* lo, uint32_t* hi,
                         const uint64_t* pw, int batch, int w32, int w, int j0,
-                        int c, int logn1, int logn2, cudaStream_t stream) {
-  const int count = c * batch;
-  cudaError_t e = launch_cols<true, kFull>(raw, lo, hi, pw, count, logn1,
-                                           logn2, logn2, 0, batch, w32, w, j0,
-                                           stream);
-  if (e != cudaSuccess) return (int)e;
-  return (int)launch_rows<false, kFull>(lo, hi, lo, hi, nullptr, pw,
-                                        count << logn1, logn1, logn2, stream);
+                        int c, int logn1, int logn2, int logk,
+                        cudaStream_t stream) {
+  if (batch < 1 || c < 1 || w < 1 || w > 32 || j0 < 0)
+    return (int)cudaErrorInvalidValue;
+  const DigitWindow<true> d = {batch, w32, w, j0};
+  return (int)launch_fwd_cluster(raw, lo, hi, pw, d, c * batch, logn1, logn2,
+                                 logk, stream);
 }
 
 // x_lo, x_hi: u32 [count, n] mat-linear; p: u32 [count] -> out: u32
@@ -970,38 +1248,38 @@ int cuhe_ntt_fwd_cols_block(const uint32_t* x, uint32_t* lo, uint32_t* hi,
                             const uint64_t* pw, int count, int logn1,
                             int logn2, int logc, int j2_0,
                             cudaStream_t stream) {
-  return (int)launch_cols<false, kFull>(x, lo, hi, pw, count, logn1, logn2,
-                                        logc, j2_0, 1, 0, 0, 0, stream);
+  return (int)launch_cols<kFull>(x, lo, hi, pw, count, logn1, logn2, logc,
+                                 j2_0, stream);
 }
 
 // The passes one at a time over all `count` transforms, for the per-pass
-// probes (probes/ablate.py).
+// probes (probes/ablate.py): the two-pass design that the one-pass
+// transforms replaced.
 // Forward column pass, x: u32 [count, n/2] -> lo, hi: u32 [count, n] at
 // [k1, j2]: load and store only, the DFTs without the twiddle, or the whole
-// pass (the first launch of cuhe_ntt_fwd).
+// pass.
 int cuhe_ntt_cols_io(const uint32_t* x, uint32_t* lo, uint32_t* hi,
                      const uint64_t* pw, int count, int logn1, int logn2,
                      cudaStream_t stream) {
-  return (int)launch_cols<false, kIo>(x, lo, hi, pw, count, logn1, logn2,
-                                      logn2, 0, 1, 0, 0, 0, stream);
+  return (int)launch_cols<kIo>(x, lo, hi, pw, count, logn1, logn2, logn2, 0,
+                               stream);
 }
 
 int cuhe_ntt_cols_notw(const uint32_t* x, uint32_t* lo, uint32_t* hi,
                        const uint64_t* pw, int count, int logn1, int logn2,
                        cudaStream_t stream) {
-  return (int)launch_cols<false, kNoEpilogue>(x, lo, hi, pw, count, logn1,
-                                              logn2, logn2, 0, 1, 0, 0, 0,
-                                              stream);
+  return (int)launch_cols<kNoEpilogue>(x, lo, hi, pw, count, logn1, logn2,
+                                       logn2, 0, stream);
 }
 
 int cuhe_ntt_cols(const uint32_t* x, uint32_t* lo, uint32_t* hi,
                   const uint64_t* pw, int count, int logn1, int logn2,
                   cudaStream_t stream) {
-  return (int)launch_cols<false, kFull>(x, lo, hi, pw, count, logn1, logn2,
-                                        logn2, 0, 1, 0, 0, 0, stream);
+  return (int)launch_cols<kFull>(x, lo, hi, pw, count, logn1, logn2, logn2,
+                                 0, stream);
 }
 
-// Forward row pass (the second launch of cuhe_ntt_fwd), out of place:
+// Forward row pass, out of place:
 // in_lo, in_hi -> out_lo, out_hi, all u32 [rows, n2]: the n1 rows of each
 // transform, or a block of rows (ntt_fwd_sharded).
 int cuhe_ntt_rows(const uint32_t* in_lo, const uint32_t* in_hi,
@@ -1048,53 +1326,22 @@ int cuhe_ntt_inv_cols(const uint64_t* a, uint32_t* out, const uint32_t* p,
 
 // Resident blocks per SM of the kernel that pass `pass` launches at this
 // shape (0 cols_io, 1 cols_notw, 2 cols, 3 rows, 4 rows_io, 5 inv_rows,
-// 6 inv_nomod, 7 inv_cols, 8 the digit column pass, 9 the one-pass
-// inverse, 10 the one-pass inverse of a product), or minus a CUDA error.
+// 6 inv_nomod, 7 inv_cols, 8 the one-pass forward of digit windows, 9 the
+// one-pass inverse, 10 the one-pass inverse of a product, 11 the one-pass
+// forward), or minus a CUDA error.
 int cuhe_ntt_blocks_per_sm(int pass, int logn1, int logn2, cudaStream_t) {
   int occ = 0;
-  const int l1 = logn1, l2 = logn2;
-  cudaError_t e = cudaErrorInvalidValue;
-  switch (pass) {
-    case 0:
-      e = launch_cols<false, kIo>(0, 0, 0, 0, 0, l1, l2, l2, 0, 1, 0, 0, 0, 0,
-                                  &occ);
-      break;
-    case 1:
-      e = launch_cols<false, kNoEpilogue>(0, 0, 0, 0, 0, l1, l2, l2, 0, 1, 0,
-                                          0, 0, 0, &occ);
-      break;
-    case 2:
-      e = launch_cols<false, kFull>(0, 0, 0, 0, 0, l1, l2, l2, 0, 1, 0, 0, 0,
-                                    0, &occ);
-      break;
-    case 3:
-      e = launch_rows<false, kFull>(0, 0, 0, 0, 0, 0, 0, l1, l2, 0, &occ);
-      break;
-    case 4:
-      e = launch_rows<true, kIo>(0, 0, 0, 0, 0, 0, 0, l1, l2, 0, &occ);
-      break;
-    case 5:
-      e = launch_rows<true, kFull>(0, 0, 0, 0, 0, 0, 0, l1, l2, 0, &occ);
-      break;
-    case 6:
-      e = launch_inv_cols<kNoEpilogue>(0, 0, 0, 0, 0, 0, l1, l2, 0, &occ);
-      break;
-    case 7:
-      e = launch_inv_cols<kFull>(0, 0, 0, 0, 0, 0, l1, l2, 0, &occ);
-      break;
-    case 8:
-      e = launch_cols<true, kFull>(0, 0, 0, 0, 0, l1, l2, l2, 0, 1, 0, 0, 0, 0,
-                                   &occ);
-      break;
-    case 9:
-      e = launch_inv_cluster(nullptr, nullptr, MulOperand<false>{}, nullptr,
-                             nullptr, nullptr, 0, l1, l2, 0, 0, &occ);
-      break;
-    case 10:
-      e = launch_inv_cluster(nullptr, nullptr, MulOperand<true>{}, nullptr,
-                             nullptr, nullptr, 0, l1, l2, 0, 0, &occ);
-      break;
-  }
+  const cudaError_t e = query_pass(pass, logn1, logn2, &occ);
+  return e == cudaSuccess ? occ : -(int)e;
+}
+
+// Thread-block clusters of the one-pass kernel that pass `pass` (8 to 11
+// above) launches at this shape that the device holds at once, or minus a
+// CUDA error.
+int cuhe_ntt_active_clusters(int pass, int logn1, int logn2, cudaStream_t) {
+  if (pass < 8 || pass > 11) return -(int)cudaErrorInvalidValue;
+  int occ = kActiveClusters;
+  const cudaError_t e = query_pass(pass, logn1, logn2, &occ);
   return e == cudaSuccess ? occ : -(int)e;
 }
 

@@ -36,8 +36,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # C signatures: 'p' a pointer (or None), 'i' a 32-bit int; every entry point
 # also takes the stream as its last argument.
 _SIGNATURES = {
-    "cuhe_ntt_fwd": "pppp" + "iii",
-    "cuhe_ntt_fwd_digits": "pppp" + "iiiiiii",
+    "cuhe_ntt_fwd": "pppp" + "iiii",
+    "cuhe_ntt_fwd_digits": "pppp" + "iiiiiiii",
     "cuhe_ntt_inv_cluster": "ppppp" + "iiii",
     # the same of a Z_P product, taken at the load
     "cuhe_ntt_inv_cluster_mul": "ppppppp" + "iiiii",
@@ -69,6 +69,8 @@ _SIGNATURES = {
     "cuhe_ntt_inv_cols": "pppp" + "iii",
     # resident blocks per SM of a pass's kernel (no launch)
     "cuhe_ntt_blocks_per_sm": "iii",
+    # thread-block clusters of a one-pass kernel the device holds at once
+    "cuhe_ntt_active_clusters": "iii",
     "cuhe_relin_blocks_per_sm": "ii",
     "cuhe_icrt_blocks_per_sm": "ii",
     # rate probes (probes/calib.py)

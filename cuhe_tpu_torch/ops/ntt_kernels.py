@@ -59,14 +59,16 @@ def check_root_shift(n: int, inverse: bool) -> None:
                          f"are compiled for 2^{KERNEL_SHIFT64[inverse]}")
 
 
-# The inverse runs in one launch, a thread-block cluster of K blocks of 256
-# threads per transform holding the whole transform in shared memory
-# (csrc/ntt.cu, cluster::inv_cols).  Its time is the integer units', so
-# the blocks an SM holds at once set it: INV_BLOCKS_PER_SM at 64 registers
-# a thread fill the register file.  K is the smallest power of two up to
-# MAX_CLUSTER whose blocks hold whole warps of rows and fit that many to an
-# SM's SM_SHARED_BYTES, each with BLOCK_RESERVED_BYTES for the runtime;
-# where none does, MAX_CLUSTER.
+# Each transform runs in one launch, a thread-block cluster of K blocks of
+# 256 threads per transform holding the whole transform in shared memory
+# (csrc/ntt.cu, cluster::inv_cols and cluster::fwd_cols).  Their time is
+# the integer units', so the blocks an SM holds at once set it:
+# INV_BLOCKS_PER_SM at 64 registers a thread fill the register file.  K is
+# the smallest power of two up to MAX_CLUSTER whose blocks hold whole warps
+# of rows and fit that many to an SM's SM_SHARED_BYTES, each with
+# BLOCK_RESERVED_BYTES for the runtime; where none does, MAX_CLUSTER.  The
+# forward's blocks hold the inverse's rows without its Barrett constant, and
+# it takes the inverse's K and blocks an SM (`inv_cluster`).
 SM_SHARED_BYTES = 228 << 10
 BLOCK_RESERVED_BYTES = 1 << 10
 MAX_CLUSTER = 8
@@ -89,7 +91,8 @@ def inv_cluster_blocks(n: int, k: int) -> int:
 
 
 def inv_cluster(n: int) -> int:
-    """Blocks per cluster of the one-pass inverse at length n."""
+    """Blocks per cluster of the one-pass inverse, and of the one-pass
+    forward, at length n."""
     n1, _ = ntt.factors(n)
     for k in (1, 2, 4, MAX_CLUSTER):
         if (n1 // k >= 32
@@ -122,7 +125,8 @@ def fwd_linear_plain(x: torch.Tensor, n: int):
 
 def fwd_linear(x: torch.Tensor, n: int):
     """Forward NTT of uint32 coefficients [.., n/2] (upper half zero) ->
-    uint32 pair [.., n] in mat-linear order."""
+    uint32 pair [.., n] in mat-linear order.  On the card: one launch of
+    the one-pass forward, a cluster per transform."""
     if _is_cpu(x):
         return fwd_linear_plain(x, n)
     check_root_shift(n, False)
@@ -137,7 +141,7 @@ def fwd_linear(x: torch.Tensor, n: int):
     if count:
         _cuda.launch("ntt_fwd", "cuhe_ntt_fwd", x.device, x, lo, hi,
                      _device_powers(n, False, str(x.device)), count,
-                     _log2(n1), _log2(n2))
+                     _log2(n1), _log2(n2), _log2(inv_cluster(n)))
     return lo, hi
 
 
@@ -348,7 +352,8 @@ def ntt_fwd_digits_plain(raw: torch.Tensor, n: int, *, w: int, j0: int,
 def ntt_fwd_digits(raw: torch.Tensor, n: int, *, w: int, j0: int, c: int):
     """Forward NTTs of the w-bit relinearization digits j0 .. j0+c-1 of RAW
     words [.., w32, n/2] (window at bit w*j, ntt_1_*_ext_block semantics).
-    Returns a uint32 pair [c, .., n] in mat-linear order."""
+    Returns a uint32 pair [c, .., n] in mat-linear order.  On the card: one
+    launch of the one-pass forward, which takes the windows at its load."""
     if _is_cpu(raw):
         return ntt_fwd_digits_plain(raw, n, w=w, j0=j0, c=c)
     check_root_shift(n, False)
@@ -366,7 +371,8 @@ def ntt_fwd_digits(raw: torch.Tensor, n: int, *, w: int, j0: int, c: int):
     if batch:
         _cuda.launch("ntt_fwd_digits", "cuhe_ntt_fwd_digits", raw.device, raw,
                      lo, hi, _device_powers(n, False, str(raw.device)), batch,
-                     w32, w, j0, c, _log2(n1), _log2(n2))
+                     w32, w, j0, c, _log2(n1), _log2(n2),
+                     _log2(inv_cluster(n)))
     return lo, hi
 
 

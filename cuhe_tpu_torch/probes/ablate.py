@@ -2,13 +2,14 @@
 ``scripts/tpu_probe_inv_ablate.py::make_ablate`` (P3, the inverse, B2) and
 ``scripts/tpu_probe_fwd32_ablate.py::make_ablate`` (P4, the forward, B1).
 
-A length-n NTT runs as two passes of ``csrc/ntt.cu`` over the four-step
+A length-n NTT ran as two passes of ``csrc/ntt.cu`` over the four-step
 split n = n1 * n2 (``ops/ntt.py``).  Each pass kernel takes a compile-time
-stop point, and the front ends here launch the same kernels the forward
-transforms launch, stopped there.  The inverse transform runs in one pass
-(``cluster::inv_cols``, a cluster's shared memory holding the transform),
-so the inverse's stop points ablate the two-pass design it replaced, and
-P3's `full` times the one pass:
+stop point, and the front ends here launch those kernels stopped there.
+Both transforms now run in one pass (``cluster::fwd_cols`` and
+``cluster::inv_cols``, a cluster's shared memory holding the transform),
+so the stop points ablate the two-pass design they replaced (whose forward
+passes still take the blocks of a transform split across devices), and
+P3's and P4's `full` time the one pass:
 
   forward  (input u32 [.., n/2] -> uint32 pair [.., n] at [k1, j2])
     cols_io      the column pass's load and store only: out[k1, j2] =
@@ -405,7 +406,7 @@ _PASS_BYTES = {"cols_io": (2, 8), "cols_notw": (2, 8), "cols": (2, 8),
 # the whole transforms as their passes, and as the kernels they launch
 TRANSFORM_PASSES = {"fwd_linear": ("cols", "rows"),
                     "inv_linear": ("inv_rows", "inv_cols")}
-TRANSFORM_KERNELS = {"fwd_linear": ("cols", "rows"),
+TRANSFORM_KERNELS = {"fwd_linear": ("fwd_cluster",),
                      "inv_linear": ("inv_cluster",)}
 
 
@@ -441,7 +442,9 @@ def kernel_products(passes, n: int) -> int:
     shift.  `inv_cluster` is the one-pass inverse that `inv_linear`
     launches (cluster::inv_cols): the inner twiddle of every element kb > 0
     of its length-16 stages is a product, and its row pass's four-step
-    twiddle is `inv_rows`'."""
+    twiddle is `inv_rows`'.  `fwd_cluster`, the one-pass forward that
+    `fwd_linear` launches (cluster::fwd_cols), is its mirror: the same
+    inner twiddles, and the four-step twiddle of `cols`."""
     passes = [q for name in passes
               for q in TRANSFORM_KERNELS.get(name, (name,))]
     n1, n2 = ntt.factors(n)
@@ -451,16 +454,18 @@ def kernel_products(passes, n: int) -> int:
     products = {"cols_io": 0, "cols_notw": col, "cols": col + col_tw,
                 "rows": row, "rows_io": 0, "inv_rows": row + row_tw,
                 "inv_nomod": col, "inv_cols": col,
-                "inv_cluster": 2 * (n // 16 * 15) + row_tw}
+                "inv_cluster": 2 * (n // 16 * 15) + row_tw,
+                "fwd_cluster": 2 * (n // 16 * 15) + col_tw}
     return sum(products[q] for q in passes)
 
 
 # id of each pass's kernel for `blocks_per_sm` (csrc/ntt.cu,
-# cuhe_ntt_blocks_per_sm); "digits" is the digit NTT's column pass (B6),
-# "inv_cluster" the one-pass inverse (B2), "inv_cluster_mul" its variant
-# that takes a Z_P product at the load
+# cuhe_ntt_blocks_per_sm); "fwd_cluster" is the one-pass forward (B1),
+# "digits" its variant of the relinearization digits (B6), "inv_cluster"
+# the one-pass inverse (B2), "inv_cluster_mul" its variant that takes a Z_P
+# product at the load
 _KERNEL_IDS = {**{name: i for i, name in enumerate(PASSES)}, "digits": 8,
-               "inv_cluster": 9, "inv_cluster_mul": 10}
+               "inv_cluster": 9, "inv_cluster_mul": 10, "fwd_cluster": 11}
 
 
 def blocks_per_sm(name: str, n: int, device) -> int:
@@ -468,4 +473,13 @@ def blocks_per_sm(name: str, n: int, device) -> int:
     length n on `device` (cudaOccupancyMaxActiveBlocksPerMultiprocessor)."""
     n1, n2 = ntt.factors(n)
     return _cuda.query("cuhe_ntt_blocks_per_sm", torch.device(device),
+                       _KERNEL_IDS[name], _log2(n1), _log2(n2))
+
+
+def active_clusters(name: str, n: int, device) -> int:
+    """Thread-block clusters of the one-pass kernel `name` ("fwd_cluster",
+    "digits", "inv_cluster", "inv_cluster_mul") at length n that `device`
+    holds at once (cudaOccupancyMaxActiveClusters)."""
+    n1, n2 = ntt.factors(n)
+    return _cuda.query("cuhe_ntt_active_clusters", torch.device(device),
                        _KERNEL_IDS[name], _log2(n1), _log2(n2))

@@ -4,7 +4,7 @@ the JAX package's generator), the shift multiply `mul_pow2` (against
 `modp.mul_modp64`), the 16 x L/16 split with the kernels' index maps
 (against `dft64`'s sub-transforms and a Python-int DFT), the Barrett
 reduction of the inverse's column pass (against `%`), the generic-product
-count and the one-pass inverse's cluster size."""
+count, and the one-pass transforms' cluster sizes and layouts."""
 
 import numpy as np
 import pytest
@@ -139,8 +139,11 @@ def test_generic_products_per_pass_are_under_one_per_coefficient():
             assert (ablate.kernel_products((name,), n)
                     == ablate.kernel_products((base,), n) + 2 * n - n // m)
         assert ablate.kernel_products(("cols_io",), n) == 0
+        # the transforms count the one-pass kernels they launch
         assert (ablate.kernel_products(("fwd_linear",), n)
-                == ablate.kernel_products(("cols", "rows"), n))
+                == ablate.kernel_products(("fwd_cluster",), n))
+        assert (ablate.kernel_products(("inv_linear",), n)
+                == ablate.kernel_products(("inv_cluster",), n))
 
 
 @pytest.mark.parametrize("n", SIZES)
@@ -203,3 +206,110 @@ def test_one_pass_inverse_product_count(n):
     want = 2 * (n // 16) * 15 + n + n // m2 * (m2 - 1)
     assert ablate.kernel_products(("inv_linear",), n) == want
     assert want > ablate.kernel_products(("inv_rows", "inv_cols"), n)
+
+
+@pytest.mark.parametrize("n", SIZES)
+def test_one_pass_forward_product_count(n):
+    """The one-pass forward's generic products: the inverse's inner
+    twiddles, a product for every element kb > 0 of both length-16 stages,
+    and the column pass's four-step twiddle with its recurrence."""
+    n1, _ = ntt.factors(n)
+    m1 = n1 // 16
+    want = 2 * (n // 16) * 15 + n + n // m1 * (m1 - 1)
+    assert ablate.kernel_products(("fwd_linear",), n) == want
+    assert want > ablate.kernel_products(("cols", "rows"), n)
+
+
+@pytest.mark.parametrize("n", SIZES)
+def test_forward_cluster_fits_its_blocks_an_sm(n):
+    """The one-pass forward shares the inverse's sizing functions
+    (`inv_cluster`, `inv_cluster_blocks`): its block holds the same n1/K
+    padded rows without the Barrett constant, so the inverse's blocks an SM
+    fit; and the kernel's shapes hold: every warp has a task of the first
+    column stage, a block's rows are whole warps, and its store whole
+    16-byte vectors a thread."""
+    n1, n2 = ntt.factors(n)
+    k = nk.inv_cluster(n)
+    blocks = nk.inv_cluster_blocks(n, k)
+    fwd_bytes = n1 // k * (n2 + 1) * 8
+    assert fwd_bytes == nk.inv_cluster_bytes(n, k) - 8
+    assert (k, blocks) == {16384: (4, 4), 32768: (8, 4), 65536: (8, 3)}[n]
+    assert blocks * (fwd_bytes + 1024) <= 228 * 1024
+    m1, mk, kb = n1 // 16, n1 // 16 // k, 16 // k
+    assert mk >= 1 and kb * m1 == n1 // k and (n1 // k) % 32 == 0
+    assert mk * (n2 // 32) >= 8
+    assert (n1 // k) * (n2 // 4) % 256 == 0
+
+
+def _col_at(j2: int, m2: int) -> int:
+    """csrc/ntt.cu cluster::fwd_cols' col_at: element j2 = a2 + M2 jb of a
+    row at position 16 a2 + (jb ^ a2 16/M2)."""
+    a2, jb = j2 % m2, j2 // m2
+    return 16 * a2 + (jb ^ (a2 * 16 // m2))
+
+
+@pytest.mark.parametrize("n", SIZES)
+def test_forward_cluster_layout_covers_the_transform(n):
+    """cluster::fwd_cols' layout in index arithmetic: the blocks load every
+    input row j1 < n1/2 of every column once; the first column stage's
+    element kb of sub-DFT a lands in block kb // KB at local row
+    (kb % KB) M1 + a, each local row of each block once, and the second
+    stage reads sub-DFTs a = 0 .. M1 - 1 of its kb in order; local row
+    kbl M1 + ka of block r holds k1 = KB r + kbl + 16 ka, every k1 once;
+    col_at permutes a row's positions, fills each bank of a column tile
+    twice and gives the first row stage the 16 positions it writes; and
+    the store covers every (k1, k2) once, at k1 n2 + k2, a half warp's
+    shared reads in distinct banks."""
+    n1, n2 = ntt.factors(n)
+    k = nk.inv_cluster(n)
+    m1, m2 = n1 // 16, n2 // 16
+    mk, kb_per = m1 // k, 16 // k
+    rows = kb_per * m1
+    loaded = []
+    for r in range(k):
+        for t in range(mk * (n2 // 32)):
+            a = mk * r + t % mk
+            for lane in range(32):
+                j2 = (t // mk) * 32 + lane
+                loaded += [(a + m1 * jb) * n2 + j2 for jb in range(8)]
+    assert sorted(loaded) == list(range(n // 2))
+    pushed = {}
+    for a in range(m1):
+        for kb in range(16):
+            dest = (kb // kb_per, (kb % kb_per) * m1 + a)
+            assert dest not in pushed
+            pushed[dest] = (a, kb)
+    assert sorted(pushed) == [(r, lr) for r in range(k) for lr in range(rows)]
+    k1s = []
+    for r in range(k):
+        for kbl in range(kb_per):
+            kb = kb_per * r + kbl
+            assert [pushed[(r, kbl * m1 + a)] for a in range(m1)] == [
+                (a, kb) for a in range(m1)]
+            k1s += [kb + 16 * ka for ka in range(m1)]
+    assert sorted(k1s) == list(range(n1))
+    pos = [_col_at(j2, m2) for j2 in range(n2)]
+    assert sorted(pos) == list(range(n2))
+    for tile in range(n2 // 32):
+        banks = [pos[tile * 32 + lane] % 16 for lane in range(32)]
+        assert sorted(banks) == sorted(list(range(16)) * 2)
+        for half in (0, 16):
+            assert len({b for b in banks[half:half + 16]}) == 16
+    for a2 in range(m2):
+        assert sorted(pos[a2 + m2 * jb] for jb in range(16)) == list(
+            range(16 * a2, 16 * a2 + 16))
+    stored = []
+    for r in range(k):
+        for i0 in range(0, rows * n2 // 4, 16):
+            half = []
+            for i in range(i0, i0 + 16):
+                hv = i >> 4
+                lr = ((i >> 2) & 3) + 4 * (hv // m2)
+                vec = (i & 3) + 4 * (hv % m2)
+                half.append((lr, vec))
+                k1 = kb_per * r + lr // m1 + 16 * (lr % m1)
+                stored += [k1 * n2 + 4 * vec + q for q in range(4)]
+            for q in range(4):
+                assert len({(lr * (n2 + 1) + 4 * vec + q) % 16
+                            for lr, vec in half}) == 16
+    assert sorted(stored) == list(range(n))
