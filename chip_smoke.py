@@ -1631,8 +1631,7 @@ def dhs_scheme(dev, card) -> dict:
     # ---- (b) the shipped simple_DHS configuration, on the card ----
     timer = CallTimer([(port_dhs, "Context"),
                        (port_dhs.CuDHS, "_find_inverse"),
-                       (poly, "poly_mul_one_to_many"),
-                       (port_dhs.CuDHS, "init_relinearization"),
+                       (port_dhs.CuDHS, "_gen_ek"),
                        (port_dhs.CuDHS, "_setup_batcher")])
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -1828,14 +1827,13 @@ def prince_full(dev, card) -> dict:
     launches summed over the 12 layers."""
     import torch
     from cuhe_tpu_torch import dhs as port_dhs
-    from cuhe_tpu_torch import hostlib, poly
+    from cuhe_tpu_torch import hostlib
     from cuhe_tpu_torch.models.prince import Prince
     from cuhe_tpu_torch.ops import _cuda
 
     timer = CallTimer([(port_dhs, "Context"), (hostlib, "poly_inv_batch"),
                        (port_dhs.CuDHS, "_find_inverse"),
-                       (poly, "poly_mul_ints"), (port_dhs.CuDHS, "_gen_ek"),
-                       (port_dhs.CuDHS, "init_relinearization"),
+                       (port_dhs.CuDHS, "key_gen"), (port_dhs.CuDHS, "_gen_ek"),
                        (port_dhs.CuDHS, "_setup_batcher")])
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -1847,12 +1845,12 @@ def prince_full(dev, card) -> dict:
     phases = {
         "context": sec["cuhe_tpu_torch.dhs.Context"],
         "native XGCD": sec["cuhe_tpu_torch.hostlib.poly_inv_batch"],
-        "CRT combine of f^-1": (sec["CuDHS._find_inverse"]
-                                - sec["cuhe_tpu_torch.hostlib.poly_inv_batch"]),
-        "pk product": sec["cuhe_tpu_torch.poly.poly_mul_ints"],
-        "eval keys": (sec["CuDHS._gen_ek"]
-                      - sec["CuDHS.init_relinearization"]),
-        "init_relinearization": sec["CuDHS.init_relinearization"],
+        "f^-1 residues": (sec["CuDHS._find_inverse"]
+                          - sec["cuhe_tpu_torch.hostlib.poly_inv_batch"]),
+        "pk, and sk and pk at every level": (sec["CuDHS.key_gen"]
+                                             - sec["CuDHS._find_inverse"]
+                                             - sec["CuDHS._gen_ek"]),
+        "eval keys": sec["CuDHS._gen_ek"],
         "batcher": sec["CuDHS._setup_batcher"],
     }
     pr = p.ctx.params

@@ -68,6 +68,25 @@ def _poly_long_div_mod_p(num_deg: int, m: list[int], p: int) -> np.ndarray:
     return q
 
 
+def _poly_long_div_int(num_deg: int, m: list[int]) -> np.ndarray | None:
+    """(x^num_deg) div m(x) over the integers, m monic: the quotient's
+    coefficients, int64, once for every prime (it reduces mod each to the
+    quotient mod p); None where a coefficient would grow past 2^40."""
+    n = len(m) - 1
+    mm = np.array(m, dtype=np.int64)
+    r = np.zeros(num_deg + 1, dtype=np.int64)
+    r[num_deg] = 1
+    q = np.zeros(num_deg - n + 1, dtype=np.int64)
+    for i in range(num_deg, n - 1, -1):
+        c = int(r[i])
+        if c:
+            if abs(c) >= 1 << 40:
+                return None
+            q[i - n] = c
+            r[i - n: i + 1] -= c * mm
+    return q
+
+
 def _host_tables(pr: Params) -> dict:
     """Everything of the context that is computed on the host, as numpy."""
     ps = list(pr.crt_primes)
@@ -96,8 +115,10 @@ def _host_tables(pr: Params) -> dict:
         return out
 
     m_per_p, u_per_p = [], []
+    u_int = _poly_long_div_int(2 * pr.mod_len - 1, mcoeffs)
     for p in ps:
-        u_per_p.append(_poly_long_div_mod_p(2 * pr.mod_len - 1, mcoeffs, p))
+        u_per_p.append(np.remainder(u_int, p) if u_int is not None else
+                       _poly_long_div_mod_p(2 * pr.mod_len - 1, mcoeffs, p))
         mp = np.array(mcoeffs, dtype=np.int64) % p
         mp[pr.mod_len] = 0  # drop the x^mod_len term (m - x^n)
         m_per_p.append(mp)
@@ -184,6 +205,7 @@ class LevelTables:
             full = ops.inv(pair, self.n, self.primes)
         else:
             full = ops.inv_mul(pair, other, self.n, self.primes)
+        del pair, other  # a caller's temporaries go before Barrett's
         if not is_prod:
             return full[..., : self.n // 2].contiguous()
         return barrett_reduce(full, mod_len=self.mod_len, n=self.n,

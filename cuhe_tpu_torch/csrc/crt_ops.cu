@@ -19,7 +19,7 @@
 // the coefficient's bit chunks with per-prime constants by one 2/1 division
 // (`div_2by1`); K8's combine replaces its conditional subtracts of M with
 // one quotient estimate.  K5 and K8's combine are instantiated at every
-// word count 1..32, so a coefficient's words live in registers.  The front
+// word count 1..40, so a coefficient's words live in registers.  The front
 // ends (ops/crt.py, ops/pointwise.py) check shapes, dtypes, contiguity and
 // alignment.
 //
@@ -37,7 +37,7 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kMaxGridY = 65535;
-constexpr int kMaxWords = 32;  // ops/crt.py MAX_WORDS
+constexpr int kMaxWords = 40;  // ops/crt.py MAX_WORDS
 
 __device__ __forceinline__ uint4 ld4(const uint32_t* p) {
   return *reinterpret_cast<const uint4*>(p);
@@ -419,11 +419,12 @@ icrt_combine16_kernel(const int32_t* __restrict__ lo16,
   }
 }
 
-// Every width 1..32 of K5 and K8 (kMaxWords, ops/crt.py MAX_WORDS).
+// Every width 1..40 of K5 and K8 (kMaxWords, ops/crt.py MAX_WORDS).
 #define CUHE_CRT_WIDTHS(X)                                                   \
   X(1) X(2) X(3) X(4) X(5) X(6) X(7) X(8) X(9) X(10) X(11) X(12) X(13)      \
   X(14) X(15) X(16) X(17) X(18) X(19) X(20) X(21) X(22) X(23) X(24) X(25)   \
-  X(26) X(27) X(28) X(29) X(30) X(31) X(32)
+  X(26) X(27) X(28) X(29) X(30) X(31) X(32) X(33) X(34) X(35) X(36) X(37)   \
+  X(38) X(39) X(40)
 
 // Launch K5 at `words`.
 cudaError_t crt_from_raw_dispatch(const uint32_t* raw, const uint32_t* primes,
@@ -468,7 +469,7 @@ cudaError_t icrt_combine16_dispatch(const int32_t* lo16, const int32_t* hi16,
 extern "C" {
 
 // raw: u32 [rows, words, len]; primes: u32 [pnum]; out: u32 [rows, pnum,
-// len]; 1 <= words <= 32.
+// len]; 1 <= words <= 40.
 int cuhe_crt_from_raw(const uint32_t* raw, const uint32_t* primes,
                       uint32_t* out, int rows, int words, int pnum, int len,
                       cudaStream_t stream) {
@@ -515,7 +516,7 @@ int cuhe_icrt_split16(const uint32_t* x, int32_t* out, int count,
 }
 
 // lo16, hi16: int32 [rows, words, len]; m_words: u32 [words]; out: u32
-// [rows, words, len]; 1 <= words <= 32, 1 <= n_shards < 2^15.
+// [rows, words, len]; 1 <= words <= 40, 1 <= n_shards < 2^15.
 int cuhe_icrt_combine16(const int32_t* lo16, const int32_t* hi16,
                         const uint32_t* m_words, uint32_t* out, int rows,
                         int words, int len, int n_shards,

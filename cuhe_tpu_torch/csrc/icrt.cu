@@ -15,7 +15,7 @@
 // `words` words out) take less time on an H100.  So the kernel runs nothing
 // else it can avoid:
 //   * the word loops are exact: the kernel is instantiated at widths W of 4,
-//     8, .., 32 words, the smallest W >= words runs, and M/p_i and M are
+//     8, .., 40 words, the smallest W >= words runs, and M/p_i and M are
 //     zero-padded to W words in shared memory;
 //   * the per-level constants (p_i, b_i, the Barrett mu_i, computed with one
 //     division per prime and block, the words of M/p_i and of M) are staged
@@ -35,7 +35,7 @@
 
 namespace {
 
-constexpr int kMaxWords = 32;
+constexpr int kMaxWords = 40;
 constexpr int kThreads = 256;
 
 // Shared memory of a block: M/p_i [pnum][W], M [W] (u32), mu_i [pnum]
@@ -206,6 +206,8 @@ cudaError_t dispatch(const uint32_t* crt, uint32_t* out,
     CUHE_ICRT_WIDTH(24)
     CUHE_ICRT_WIDTH(28)
     CUHE_ICRT_WIDTH(32)
+    CUHE_ICRT_WIDTH(36)
+    CUHE_ICRT_WIDTH(40)
   }
 #undef CUHE_ICRT_WIDTH
   return cudaErrorInvalidValue;

@@ -130,14 +130,7 @@ class Prince:
     # ------------------------------------------------------------------
     def encrypt_state(self, bits: list[int]) -> torch.Tensor:
         """64 bits -> CRT-domain batched ciphertext state [64, pnum, clen]."""
-        cts = self.dhs.encrypt_many([[b] for b in bits], 0)
-        return self._state_from_ints(cts, 0)
-
-    def _state_from_ints(self, cts: list[list[int]], lvl: int) -> torch.Tensor:
-        pr = self.ctx.params
-        words = pr.words_coeff(lvl)
-        raws = np.stack([hm.ints_to_words(c, words, pr.raw_len) for c in cts])
-        return self.ctx.r2c(lvl, torch.from_numpy(raws).to(self.ctx.device))
+        return self.dhs.encrypt_crt([[b] for b in bits], 0)
 
     def decrypt_state(self, state: torch.Tensor, lvl: int) -> list[int]:
         """Decrypt constant terms of all 64 ciphertexts."""

@@ -105,8 +105,11 @@ def barrett_reduce(f, *, mod_len: int, n: int, u_ntt, m_ntt, m_crt, primes,
     # mod_len on are read below (the JAX package zeroes the others)
     t1 = ops.fwd(f[..., mod_len - 1: mod_len - 1 + half].contiguous(), n)
     c1 = ops.inv_mul(t1, u_ntt, n, primes)
+    del t1  # (each temporary goes as soon as it is read: at 64k and a
+    # batch of hundreds, one is gigabytes)
 
     # c2 = intt((m - x^n) * ntt(c1 >> mod_len))
-    h = c1[..., mod_len: mod_len + half].contiguous()
-    c2 = ops.inv_mul(ops.fwd(h, n), m_ntt, n, primes)
+    t2 = ops.fwd(c1[..., mod_len: mod_len + half].contiguous(), n)
+    c2 = ops.inv_mul(t2, m_ntt, n, primes)
+    del t2
     return ops.combine(f, c1, c2, m_crt, primes, mod_len=mod_len, n=n)

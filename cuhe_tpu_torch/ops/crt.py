@@ -42,7 +42,7 @@ import torch
 from . import _cuda, modp
 from .ntt_kernels import _is_cpu, _u32_contiguous
 
-MAX_WORDS = 32  # the kernels' widest instantiation (csrc/icrt.cu kMaxWords)
+MAX_WORDS = 40  # the kernels' widest instantiation (csrc/icrt.cu kMaxWords)
 
 
 def _words_arg(name: str, t) -> int:

@@ -246,8 +246,8 @@ def poly_mul_ints(ctx: Context, a: list[int], b: list[int], lvl: int) -> list[in
 def poly_mul_one_to_many(ctx: Context, a: list[int], bs: list[list[int]],
                          lvl: int) -> list[list[int]]:
     """(a * b_i) mod m(x) mod q_lvl for a fixed left operand, the b_i in
-    batches of MUL_MANY_CHUNK through `Context.mul_one_many` (keygen's eval
-    keys, DHS.cu:340-362, share one NTT of `a`)."""
+    batches of MUL_MANY_CHUNK through `Context.mul_one_many` (decryption's
+    products by the secret key share one NTT of `a`)."""
     pr = ctx.params
     words = pr.words_coeff(lvl)
     a_ntt = to_ntt(ctx, ctxt_from_ints(a, lvl)).data

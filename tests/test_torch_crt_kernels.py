@@ -346,7 +346,7 @@ def _k5_model(coeff, words, p):
     return _div_2by1(total, d, v)[1] >> s
 
 
-@pytest.mark.parametrize("words", range(1, 33))
+@pytest.mark.parametrize("words", range(1, 41))
 def test_crt_from_raw_kernel_arithmetic_by_hand(words):
     """Every width: N chunks of B bits cover the words and N 2^B <= 2^32,
     so the sum of N products (each below 2^B d) is below 2^32 d < 2^64;
@@ -461,8 +461,8 @@ def test_combine_ref_matches_the_plain_combine_on_any_halves(n_shards):
 def test_front_ends_check_shapes_on_the_cpu():
     x = torch.zeros((2, 3, 8), dtype=torch.uint32)
     p = torch.ones(3, dtype=torch.uint32)
-    with pytest.raises(ValueError, match="1..32 words"):
-        crt.crt_from_raw(torch.zeros((2, 33, 8), dtype=torch.uint32), p)
+    with pytest.raises(ValueError, match="1..40 words"):
+        crt.crt_from_raw(torch.zeros((2, 41, 8), dtype=torch.uint32), p)
     with pytest.raises(ValueError, match="primes"):
         crt.crt_from_raw(x, torch.ones((1, 3), dtype=torch.uint32))
     with pytest.raises(ValueError, match="expected"):
